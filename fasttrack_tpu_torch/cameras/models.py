@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from fasttrack_tpu_torch.device import resolve
+
 PINHOLE = "pinhole"
 FISHEYE_KB8 = "kb8"
 
@@ -23,6 +25,7 @@ _MAX_PARAMS = 8
 class Camera:
     kind: str
     params: torch.Tensor  # (8,) float32, on the device the camera is used on
+                          # (the constructors' device=None means the card)
     width: int
     height: int
 
@@ -30,13 +33,13 @@ class Camera:
 def make_pinhole(fx, fy, cx, cy, width=752, height=480, device=None) -> Camera:
     p = torch.zeros(_MAX_PARAMS, dtype=torch.float32)
     p[:4] = torch.tensor([fx, fy, cx, cy], dtype=torch.float32)
-    return Camera(PINHOLE, p.to(device), int(width), int(height))
+    return Camera(PINHOLE, p.to(resolve(device)), int(width), int(height))
 
 
 def make_kannala_brandt8(fx, fy, cx, cy, k0, k1, k2, k3, width=512, height=512,
                          device=None) -> Camera:
     p = torch.tensor([fx, fy, cx, cy, k0, k1, k2, k3], dtype=torch.float32)
-    return Camera(FISHEYE_KB8, p.to(device), int(width), int(height))
+    return Camera(FISHEYE_KB8, p.to(resolve(device)), int(width), int(height))
 
 
 def _project_pinhole(params, X):

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.geometry.so3 import (
     so3_exp,
     so3_left_jacobian,
@@ -32,6 +33,8 @@ class SE3(NamedTuple):
 
 
 def se3_identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
+    """Identity on `device` (None: the card; see device.resolve)."""
+    device = resolve(device)
     R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
     t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
     return SE3(R, t)

@@ -4,7 +4,8 @@ Each source under `ops/csrc/` has a plain C interface and is compiled by
 `nvcc` for Hopper (`sm_90a`) into `fasttrack_tpu_torch/_build/`, keyed by
 a hash of the source and the flags, then loaded with ctypes by its
 wrapper. Only sources in the package are built; nothing is fetched. The
-build happens on the first call with a CUDA tensor, never on import.
+build happens on the first call with a CUDA tensor, never on import;
+`build_all` compiles several sources side by side.
 """
 
 from __future__ import annotations
@@ -43,19 +44,31 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(output), str(source)]
 
 
-def build(source_name: str) -> Path:
-    """Compiled library for csrc/<source_name>, built if not yet present."""
-    source = CSRC_DIR / source_name
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        nvcc_command(find_nvcc(), source, tmp), capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {source_name}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads a partial file
-    return out
+def build_all(source_names) -> list[Path]:
+    """Compiled libraries for csrc/<name> of every name, in order. Those not
+    yet present are compiled together, one nvcc process per source."""
+    sources = [CSRC_DIR / name for name in source_names]
+    outs = [library_path(source) for source in sources]
+    running = []
+    for source, out in zip(sources, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            nvcc_command(find_nvcc(), source, tmp),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        running.append((source, out, tmp, proc))
+    failures = []
+    for source, out, tmp, proc in running:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed on {source.name}:\n{stderr}")
+        else:
+            os.replace(tmp, out)  # atomic: another process never loads a partial file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
+

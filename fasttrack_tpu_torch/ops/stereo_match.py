@@ -1,8 +1,9 @@
 """Rectified stereo descriptor matching with sub-pixel refinement.
 
-Port of fasttrack_tpu/ops/stereo_match.py:match_rectified. The full
-(N_L, N_R) penalised Hamming matrix comes from the Hamming+penalty kernel;
-the TOP_K best candidates per left keypoint are then gated by the row
+Port of fasttrack_tpu/ops/stereo_match.py:match_rectified. The TOP_K
+nearest right keypoints of every left keypoint by penalised Hamming
+distance come from the fused Hamming+penalty+top-K kernel (the (N_L, N_R)
+matrix is never formed on the card); they are then gated by the row
 band, the disparity window and the octave band as additive penalties
 (exact unless a true in-window match falls outside the K best). The
 refinement is an 11x11 SAD over +-5 px at the left keypoint's octave with
@@ -16,9 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from fasttrack_tpu_torch.ops.hamming_kernel import hamming_penalty_matrix
+from fasttrack_tpu_torch.ops.hamming_kernel import hamming_penalty_topk
 from fasttrack_tpu_torch.ops.orientation import gather_windows
-from fasttrack_tpu_torch.ops.topk import top_k
 
 TH_HIGH = 100
 BIG = 1e9
@@ -52,9 +52,9 @@ def match_rectified(
 ) -> StereoMatches:
     """One-shot rectified stereo matching + refinement + median cull."""
     n = l_x.shape[0]
-    dm = hamming_penalty_matrix(l_desc, r_desc, valid_penalty(l_valid), valid_penalty(r_valid))
-    neg_cd, ni = top_k(-dm, TOP_K)   # (N, K)
-    cd = -neg_cd
+    cd, ni = hamming_penalty_topk(
+        l_desc, r_desc, valid_penalty(l_valid), valid_penalty(r_valid), TOP_K
+    )                                # (N, K)
     c_y, c_x, c_l = r_y[ni], r_x[ni], r_level[ni].float()
     r_row = 2.0 * scale_factors[l_level]
     dy = torch.abs(c_y - l_y[:, None])

@@ -85,14 +85,14 @@ def test_se3_compose_inverse_apply_matrix(rng):
     np.testing.assert_allclose(
         tgeo.se3_matrix(A).numpy(), np.asarray(jgeo.se3_matrix(jax_se3(A))), **TOL
     )
-    I = tgeo.se3_identity()
+    I = tgeo.se3_identity(device="cpu")
     np.testing.assert_array_equal(I.R.numpy(), np.eye(3, dtype=np.float32))
     np.testing.assert_array_equal(I.t.numpy(), np.zeros(3, np.float32))
 
 
 def test_se3_from_numpy(rng):
     T = jgeo.se3_exp(jnp.asarray(tangents(rng, 1)[0]))
-    assert_se3_close(convert.se3_from_numpy(np.asarray(T.R), np.asarray(T.t)), T)
+    assert_se3_close(convert.se3_from_numpy(np.asarray(T.R), np.asarray(T.t), device="cpu"), T)
 
 
 def points(rng, n=256):
@@ -114,7 +114,7 @@ CAMERAS = {
 @pytest.mark.parametrize("kind", ["pinhole", "kb8"])
 def test_project(rng, kind):
     cj = CAMERAS[kind]
-    ct = convert.camera_from_numpy(cj.kind, np.asarray(cj.params), cj.width, cj.height)
+    ct = convert.camera_from_numpy(cj.kind, np.asarray(cj.params), cj.width, cj.height, device="cpu")
     X = points(rng)
     np.testing.assert_allclose(
         tcam.project(ct, torch.from_numpy(X)).numpy(),
@@ -124,7 +124,7 @@ def test_project(rng, kind):
 
 def test_make_pinhole_and_unproject(rng):
     cj = CAMERAS["pinhole"]
-    ct = tcam.make_pinhole(458.654, 457.296, 367.215, 248.375, 752, 480)
+    ct = tcam.make_pinhole(458.654, 457.296, 367.215, 248.375, 752, 480, device="cpu")
     np.testing.assert_array_equal(ct.params.numpy(), np.asarray(cj.params))
     uv = np.array(jcam.project(cj, jnp.asarray(points(rng))))
     np.testing.assert_allclose(

@@ -53,10 +53,11 @@ def runs():
         jnp.asarray(f1), JCFG, bf, min_z, cam_j, jax_se3_identity(),
         *(jnp.asarray(mp[k]) for k in MAP_KEYS),
     )
-    cam_t = convert.camera_from_numpy("pinhole", np.asarray(cam_j.params), W, H)
+    cam_t = convert.camera_from_numpy("pinhole", np.asarray(cam_j.params), W, H, device="cpu")
     got = tfp.tracking_hot_path(
         torch.from_numpy(f1), CFG, torch.tensor(BF), torch.tensor(MIN_Z), cam_t,
-        convert.se3_from_numpy(np.eye(3), np.zeros(3)), *convert.map_from_numpy(**mp),
+        convert.se3_from_numpy(np.eye(3), np.zeros(3), device="cpu"),
+        *convert.map_from_numpy(**mp, device="cpu"),
     )
     return want, got, mp
 

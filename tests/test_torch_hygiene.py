@@ -7,6 +7,9 @@
   in full f32, the counterpart of the JAX package's precision pin).
 - Nothing on the path is random: the BRIEF pattern and its rotated
   sampling offsets equal the JAX package's.
+- The port runs on the card: a constructor given `device=None` goes through
+  `device.resolve`, which fails where there is no card; `device="cpu"` is
+  honoured.
 """
 
 import ast
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 import fasttrack_tpu_torch
+from fasttrack_tpu_torch import cameras, convert, device, geometry
 from fasttrack_tpu.ops import descriptor as jax_descriptor
 from fasttrack_tpu.ops.pattern import PATTERN as JAX_PATTERN
 from fasttrack_tpu_torch.ops import descriptor
@@ -45,9 +49,12 @@ def test_package_has_the_slice_modules():
         "ops/hamming.py", "ops/hamming_kernel.py", "ops/extractor.py",
         "ops/stereo_match.py", "ops/project_match.py", "optim/robust.py",
         "optim/pose_opt.py", "frame_pipeline.py", "convert.py",
+        "device.py", "cameras/host.py", "fused_track.py", "parity.py", "ops/topk.py",
+        "ops/cuda_build.py",
     ):
         assert m in names, m
-    assert (PACKAGE / "ops" / "csrc" / "hamming_penalty.cu").is_file()
+    for source in ("hamming_penalty.cu", "hamming_topk.cu"):
+        assert (PACKAGE / "ops" / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -72,3 +79,77 @@ def test_sampling_offsets_equal_jax_sampling_matrices():
     assert (descriptor.N_ANGLE_BINS, descriptor.PATCH_HALF_EXT) == (
         jax_descriptor.N_ANGLE_BINS, jax_descriptor.PATCH_HALF_EXT,
     )
+
+
+def _store_args(n=4):
+    return (np.zeros((n, 3)), np.ones((n, 256), np.int8), np.zeros((n, 3)), np.zeros(n),
+            np.full(n, np.inf))
+
+
+def _keypoint_args(n=4):
+    z = np.zeros(n)
+    return (z, z, z, z, z, z, z, np.ones((n, 256), np.int8), np.zeros((n, 32), np.uint8), z > 0)
+
+
+CONSTRUCTORS = {
+    "se3_identity": (geometry.se3_identity, ()),
+    "make_pinhole": (cameras.make_pinhole, (458.0, 457.0, 367.0, 248.0)),
+    "make_kannala_brandt8": (cameras.make_kannala_brandt8, (190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0)),
+    "camera_from_numpy": (convert.camera_from_numpy, ("pinhole", np.zeros(8), 752, 480)),
+    "se3_from_numpy": (convert.se3_from_numpy, (np.eye(3), np.zeros(3))),
+    "map_from_numpy": (convert.map_from_numpy, (
+        np.zeros(4), np.zeros(4), np.ones((4, 256), np.int8), np.zeros((4, 3)), np.zeros(4),
+        np.zeros(4), np.zeros(4), np.zeros(4, bool))),
+    "store_from_numpy": (convert.store_from_numpy, _store_args()),
+    "query_block_from_numpy": (convert.query_block_from_numpy, (
+        np.zeros((7, 4)), np.zeros(4), np.zeros(6), np.zeros(6, bool))),
+    "keypoints_from_numpy": (convert.keypoints_from_numpy, _keypoint_args()),
+}
+
+
+def _tensors(value):
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, cameras.Camera):
+        return [value.params]
+    return [t for v in value for t in _tensors(v)]
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructor_honours_cpu_and_defaults_to_the_card(name, monkeypatch):
+    fn, args = CONSTRUCTORS[name]
+    made = _tensors(fn(*args, device="cpu"))
+    assert made and all(t.device.type == "cpu" for t in made)
+    # device=None goes through the resolver: without a card it raises ...
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(*args)
+    # ... and with one it asks for cuda:0 (seen at the resolver: there is no card here)
+    asked = []
+
+    def fake_resolve(dev=None):
+        asked.append(dev)
+        return device.resolve(dev if dev is not None else "cpu")
+
+    for module in (geometry.se3, cameras.models, convert):
+        monkeypatch.setattr(module, "resolve", fake_resolve)
+    fn(*args)
+    assert asked == [None]
+
+
+def test_resolve():
+    assert device.resolve("cpu") == torch.device("cpu")
+    assert device.resolve(torch.device("cuda", 1)) == torch.device("cuda", 1)
+    if torch.cuda.is_available():
+        assert device.resolve() == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="found none"):
+            device.resolve()
+
+
+def test_max_dist_of_the_store_is_made_finite():
+    st = convert.store_from_numpy(*_store_args(), device="cpu")
+    assert (st.max_dist == 1e6).all()
+    with pytest.raises(ValueError):
+        convert.store_from_numpy(np.zeros((4, 3)), np.ones((3, 256), np.int8), np.zeros((4, 3)),
+                                 np.zeros(4), np.zeros(4), device="cpu")

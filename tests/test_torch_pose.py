@@ -60,9 +60,11 @@ def test_pose_matches_jax(rng, case):
         CAM, jnp.float32(BF), T0, jnp.asarray(X), jnp.asarray(uv), jnp.asarray(ur),
         jnp.asarray(inv_sigma2), jnp.asarray(valid),
     )
-    cam = convert.camera_from_numpy(CAM.kind, np.asarray(CAM.params), CAM.width, CAM.height)
+    cam = convert.camera_from_numpy(
+        CAM.kind, np.asarray(CAM.params), CAM.width, CAM.height, device="cpu"
+    )
     got = pose_optimize(
-        cam, torch.tensor(BF), convert.se3_from_numpy(np.asarray(T0.R), np.asarray(T0.t)),
+        cam, torch.tensor(BF), convert.se3_from_numpy(np.asarray(T0.R), np.asarray(T0.t), device="cpu"),
         *(torch.from_numpy(a) for a in (X, uv, ur, inv_sigma2, valid)),
     )
     np.testing.assert_allclose(got.pose.R.numpy(), np.asarray(want.pose.R), rtol=0, atol=1e-4)
