@@ -8,8 +8,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
    by side;
 3. kernels against plain: hamming_penalty_matrix (bitwise equal) and the
    fused hamming_penalty_topk (values and indices equal) against their
-   plain PyTorch versions at the tracker's shapes, ragged ones, N < K and
-   an input built to tie; device time of each beside its plain version,
+   plain PyTorch versions at the tracker's shapes, ragged ones, N < K, an
+   input built to tie, and K = 2 as match_fisheye calls it (validity
+   penalties of 1e9, so that whole rows tie); device time of each beside
+   its plain version,
    what the fused kernel replaces (matrix kernel + stable sort) and
    matrix kernel + torch.topk;
 4. hot path: tracking_hot_path on consecutive 752x480 stereo frames
@@ -24,11 +26,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
    slots, the host side as the tracker does it (parity.py), with per-frame
    checks and ms/frame;
 7. fused step, card against CPU: one frame's twm_step and tlm_step on the
-   CPU from the same keypoints and blocks.
+   CPU from the same keypoints and blocks;
+8. tracker: a rendered 752x480 stereo sequence (datasets.synthetic: two
+   depths, 6-DOF motion, ground truth) through Tracker.track_stereo from
+   the first frame: stereo initialization, one stepwise frame (reference
+   keyframe, local map), then fused single-fetch frames, keyframes and new
+   map points over the real map, with per-frame checks, the ATE against
+   ground truth and ms/frame;
+9. tracker, card against CPU: the first frames again through
+   Tracker(device="cpu"): states, keyframes, bindings and poses.
 
 The line before the last two is a JSON object of the kernels; the last is
-{"ok": true, "device": {...}}. Each kernel's `launches` is what the two
-paths (phases 4 and 6) launched, counted from 0 at each path's start. The
+{"ok": true, "device": {...}}. Each kernel's `launches` is what the three
+paths (phases 4, 6 and 8) launched, counted from 0 at each path's start. The
 matrix kernel's is 0: since its top-K was fused no tracker path calls it
 (modules of later slices will), and phase 3 alone holds it against plain.
 Imports nothing of JAX.
@@ -44,6 +54,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from fasttrack_tpu_torch import convert, fused_track, parity
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
+from fasttrack_tpu_torch.datasets.synthetic import generate_sequence
+from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
 from fasttrack_tpu_torch.frame_pipeline import (
     pack_frame_for_host,
     pack_hot_path_for_host,
@@ -54,7 +66,10 @@ from fasttrack_tpu_torch.frame_pipeline import (
 from fasttrack_tpu_torch.geometry import se3_identity
 from fasttrack_tpu_torch.ops import hamming_kernel
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
+from fasttrack_tpu_torch.ops.stereo_match import valid_penalty
 from fasttrack_tpu_torch.ops.topk import top_k
+from fasttrack_tpu_torch.slam_map import Atlas
+from fasttrack_tpu_torch.tracking import Tracker
 
 H, W = 480, 752
 CFG = OrbConfig(height=H, width=W, n_features=1024, n_levels=8)
@@ -68,9 +83,17 @@ KEYFRAME_EVERY = 4              # frames between insertions of new map points
 STEP = (3, 5)  # (dy, dx) px the view moves per frame: content moves (-5, -3)
 TOP_K = 64
 MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (1200, 1000)]
-# (M, N, input built to tie); 33 x 40 has N < K
-TOPK_CASES = [(1024, 1024, False), (2048, 1024, False), (4096, 1024, False),
-              (1200, 1000, False), (33, 40, False), (1024, 1024, True)]
+# (M, N, kind of input, K); 33 x 40 has N < K. "validity": what match_fisheye
+# gives the kernel (penalties 0 or 1e9, invalid rows tie across all columns).
+TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 1024, "random", 64),
+              (1200, 1000, "random", 64), (33, 40, "random", 64), (1024, 1024, "tied", 64),
+              (1024, 1024, "validity", 2), (1000, 900, "validity", 2), (1024, 1024, "tied", 2)]
+N_TRACKER_FRAMES = 40           # the rendered sequence of phase 8
+N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
+# ATE RMSE limit of phase 8 (m). The same 40 frames through Tracker(device="cpu")
+# give 0.0033 m; the limit leaves room for f32 sums taken in another order and
+# for a keyframe decision that falls a frame earlier or later.
+ATE_LIMIT_M = 0.02
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -185,11 +208,18 @@ def in_turns(plain, kern):
             return (k1 + k2) / 2, (p1 + p2) / 2, mode
 
 
-def kernel_inputs(rng, M, N, device, ties=False):
+def kernel_inputs(rng, M, N, device, kind="random"):
     """+-1 descriptors and penalties among 0, small values, 1e9 and 2e9
-    (where f32 rounding makes the addition order matter); with `ties`, rows
-    drawn from 4 descriptors, so that most distances are equal."""
-    if ties:
+    (where f32 rounding makes the addition order matter); "tied": rows
+    drawn from 4 descriptors, so that most distances are equal; "validity":
+    penalties as match_fisheye makes them from validity masks (a fifth of
+    the rows and columns at 1e9: such a row ties across all its columns)."""
+    if kind == "validity":
+        q = (2 * rng.integers(0, 2, (M, 256)) - 1).astype(np.int8)
+        k = (2 * rng.integers(0, 2, (N, 256)) - 1).astype(np.int8)
+        qp = valid_penalty(torch.from_numpy(rng.random(M) > 0.2)).numpy()
+        kp = valid_penalty(torch.from_numpy(rng.random(N) > 0.2)).numpy()
+    elif kind == "tied":
         base = (2 * rng.integers(0, 2, (4, 256)) - 1).astype(np.int8)
         q, k = base[rng.integers(0, 4, M)], base[rng.integers(0, 4, N)]
         pens = np.asarray([0.0, 0.5, 1e9, 2e9], np.float32)
@@ -243,34 +273,38 @@ def phase_topk_kernel(device, card):
     matrix = hamming_kernel.hamming_penalty_matrix
     rows, max_err, mismatches = {}, 0.0, 0
 
-    def replaced(*args):   # what the matchers did before: kernel matrix, stable sort, slice
-        neg, idx = top_k(-matrix(*args), min(TOP_K, args[1].shape[0]))
+    def replaced(*args, k):   # what the matchers did before: kernel matrix, stable sort, slice
+        neg, idx = top_k(-matrix(*args), min(k, args[1].shape[0]))
         return -neg, idx
 
-    for M, N, ties in TOPK_CASES:
-        args = kernel_inputs(rng, M, N, device, ties)
+    for M, N, kind, K in TOPK_CASES:
+        args = kernel_inputs(rng, M, N, device, kind)
         before = kern.launches
-        values, indices = kern(*args, TOP_K)
+        values, indices = kern(*args, K)
         torch.cuda.synchronize()
-        check(kern.launches == before + 1, f"top-k launch counter did not count at {(M, N)}")
-        want_v, want_i = plain(*args, TOP_K)
-        check(values.shape == want_v.shape == (M, min(TOP_K, N)), f"top-k shape at {(M, N)}")
+        check(kern.launches == before + 1, f"top-k launch counter did not count at {(M, N, K)}")
+        want_v, want_i = plain(*args, K)
+        check(values.shape == want_v.shape == (M, min(K, N)), f"top-k shape at {(M, N, K)}")
         bad = int((indices != want_i).sum())
         mismatches += bad
         max_err = max(max_err, float((values - want_v).abs().max()))
         check(torch.equal(values, want_v) and bad == 0,
-              f"top-k kernel differs from plain at {(M, N, ties)}: {bad} indices")
-        line = f"phase 3 top-k kernel against plain {(M, N)}{' tied' if ties else ''}: values and indices equal"
-        if M >= 1024 and not ties:
+              f"top-k kernel differs from plain at {(M, N, kind, K)}: {bad} indices")
+        line = f"phase 3 top-k kernel against plain {(M, N)} K={K} {kind}: values and indices equal"
+        if kind == "validity":
+            tie_rows = int((args[2] > 0).sum())
+            check(tie_rows > 0, f"no penalised row among the inputs at {(M, N, K)}")
+            line += f" ({tie_rows} rows penalised by 1e9 tie across their columns)"
+        if M >= 1024 and kind != "tied":
             while True:
-                k_ms, p_ms, timer = in_turns(lambda: plain(*args, TOP_K), lambda: kern(*args, TOP_K))
-                rep = device_ms(lambda: replaced(*args))
-                lib = device_ms(lambda: torch.topk(matrix(*args), TOP_K, largest=False))
+                k_ms, p_ms, timer = in_turns(lambda: plain(*args, K), lambda: kern(*args, K))
+                rep = device_ms(lambda: replaced(*args, k=K))
+                lib = device_ms(lambda: torch.topk(matrix(*args), K, largest=False))
                 if TIMER["mode"] == timer:
                     break
-            b, by = bound_ms(M, N, M * TOP_K * 12)
-            rows[(M, N)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
-                            "replaced_ms": rep, "matrix_plus_torch_topk_ms": lib, "timer": timer}
+            b, by = bound_ms(M, N, M * K * 12)
+            rows[(M, N, K)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
+                               "replaced_ms": rep, "matrix_plus_torch_topk_ms": lib, "timer": timer}
             line += (f"; device time ({timer}) kernel {k_ms * 1e3:.2f} us, plain "
                      f"{p_ms * 1e3:.2f} us, matrix kernel + stable sort {rep * 1e3:.2f} us, "
                      f"matrix kernel + torch.topk {lib * 1e3:.2f} us (its tie order is unspecified), "
@@ -524,6 +558,142 @@ def phase_fused_card_vs_cpu(kept):
     print(f"phase 7 fused step card against CPU: {json.dumps(report)}")
 
 
+def tracker_step(tracker, frame) -> dict:
+    """One frame of the rendered sequence through `tracker.track_stereo`,
+    timed on the host's clock (the call ends after its last fetch), and
+    what the checks read. A frame went stepwise if it recorded
+    `orb_extraction` (the fused path records it only when it falls back)."""
+    series = tracker.stats.series
+    counts = {k: len(series[k]) for k in ("orb_extraction", "device_fetches", "store_uploads")}
+    kern = hamming_kernel.hamming_penalty_topk
+    launches, top2 = kern.launches, kern.launches_by_k[2]
+    if tracker.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.track_stereo(frame.left, frame.right, frame.timestamp)
+    ms = (time.perf_counter() - t0) * 1e3
+    last, m = tracker.last_frame, tracker.atlas.current
+    return {
+        "ms": ms, "state": tracker.state.name,
+        "path": "stepwise" if len(series["orb_extraction"]) > counts["orb_extraction"] else "fused",
+        "fetches": len(series["device_fetches"]) - counts["device_fetches"],
+        "uploads": len(series["store_uploads"]) - counts["store_uploads"],
+        "launches": kern.launches - launches, "launches_k2": kern.launches_by_k[2] - top2,
+        "keyframes": m.n_keyframes(), "mappoints": m.n_mappoints(),
+        "bound": int((last.mp_ids >= 0).sum()), "inliers": tracker.n_inliers,
+        "stereo": int((last.valid & (last.depth > 0)).sum()),
+        "mp_ids": last.mp_ids.copy(), "R": last.R_cw.copy(), "t": last.t_cw.copy(),
+    }
+
+
+def make_tracker(seq, device) -> Tracker:
+    cam = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device)
+    return Tracker(cam, CFG, seq.fx * seq.baseline, Atlas(), device=device)
+
+
+def phase_tracker(device, seq, card):
+    """The whole tracking thread on the card: Tracker.track_stereo over the
+    rendered sequence, from the first frame, with no local mapper (the
+    tracker makes the close stereo points of each keyframe itself)."""
+    kern = hamming_kernel.hamming_penalty_topk
+    kern.launches = 0
+    kern.launches_by_k.clear()
+    hamming_kernel.hamming_penalty_matrix.launches = 0
+    tracker = make_tracker(seq, device)
+    log = [tracker_step(tracker, f) for f in seq.frames]
+
+    first = log[0]
+    check(first["state"] == "OK" and first["stereo"] > 300 and first["keyframes"] == 1,
+          f"tracker frame 0 did not initialize: {first['state']}, {first['stereo']} stereo points "
+          "(the gate is 100)")
+    for i, r in enumerate(log[1:], 1):
+        check(r["state"] == "OK", f"tracker frame {i}: state {r['state']}")
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"tracker frame {i}: pose")
+    series = tracker.stats.series
+    check(log[1]["path"] == "stepwise" and len(series["trk"]) >= 1 and len(series["tlm"]) >= 1
+          and log[1]["launches_k2"] == 1,
+          f"tracker frame 1 did not go stepwise through the reference keyframe (K = 2) and the "
+          f"local map: {log[1]['path']}, K=2 launches {log[1]['launches_k2']}")
+    fused = [r for r in log[2:] if r["path"] == "fused"]
+    for i, r in enumerate(log[2:], 2):
+        if r["path"] != "fused":
+            print(f"phase 8 tracker frame {i} went stepwise: the motion-model search of the fused "
+                  f"frame found fewer than 10 inliers ({r['fetches']} fetches, "
+                  f"{r['inliers']} inliers)")
+        else:
+            check(r["fetches"] == 1, f"tracker frame {i}: {r['fetches']} fetches on the fused path")
+            check(r["launches"] == 3 and r["launches_k2"] == 0,
+                  f"tracker frame {i}: {r['launches']} top-k launches on the fused path, not 3")
+    check(len(fused) >= 30, f"only {len(fused)} of {len(log) - 2} frames took the fused path")
+    n_kf = log[-1]["keyframes"]
+    check(n_kf >= 2, f"{n_kf} keyframes after {len(log)} frames")
+    # the device mirror follows the map: uploaded by the first fused frame
+    # and by the first one after each keyframe, by no other frame
+    pending, kf_before = True, 0
+    for i, r in enumerate(log):
+        want = int(pending and r["path"] == "fused")
+        check(r["uploads"] == want,
+              f"tracker frame {i} ({r['path']}): {r['uploads']} uploads of the point store, "
+              f"not {want}")
+        pending = (pending and not want) or r["keyframes"] != kf_before
+        kf_before = r["keyframes"]
+    uploads = len(series["store_uploads"])
+
+    traj = tracker.trajectory
+    t_est = np.asarray([t for t, _, _ in traj])
+    p_est = np.asarray([-R.T @ t_ for _, R, t_ in traj])
+    ate = absolute_trajectory_error(t_est, p_est, seq.gt_t, seq.gt_pos)
+    check(ate["n"] == len(seq.frames) and ate["rmse"] < ATE_LIMIT_M,
+          f"tracker ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
+
+    times = [r["ms"] for r in fused[N_WARMUP:]]
+    med = lambda key, rows=fused: float(np.median([r[key] for r in rows]))
+    host = {k: float(np.median(series[k][N_WARMUP:]))
+            for k in ("fused_host_pre", "fused_dispatch", "fused_host_post")}
+    # the fused frames end the run, so their waits end the series
+    sync = float(np.median(series["sync_ms"][-(len(fused) - N_WARMUP):]))
+    print(
+        f"phase 8 tracker: {len(log)} frames at {W}x{H}, {CFG.n_levels} levels, "
+        f"{CFG.n_features} features through Tracker.track_stereo on {card}: frame 0 initialized "
+        f"with {first['stereo']} stereo points ({first['mappoints']} map points); frame 1 stepwise "
+        f"(reference keyframe K=2, local map) {log[1]['ms']:.1f} ms, {log[1]['fetches']} fetches; "
+        f"{len(fused)} fused frames, 1 fetch and 3 top-k launches each: median "
+        f"{np.median(times):.3f} ms/frame, p90 {np.percentile(times, 90):.3f} ms/frame over "
+        f"{len(times)} (after {N_WARMUP} warm-up); of it on the host's clock, median: packing the "
+        f"blocks {host['fused_host_pre']:.3f} ms, dispatch of the device chain "
+        f"{host['fused_dispatch']:.3f} ms, wait in the fetch {sync:.3f} ms, bookkeeping after it "
+        f"{host['fused_host_post']:.3f} ms; per fused frame median: bound {med('bound'):.0f}, "
+        f"inliers {med('inliers'):.0f}; keyframes {n_kf}, map points {log[-1]['mappoints']}, "
+        f"store uploads {uploads} (rows {tracker.atlas.current.store.n_rows} of "
+        f"{tracker.atlas.current.store.cap}); ATE RMSE {ate['rmse']:.4f} m (limit {ATE_LIMIT_M}); "
+        f"top-k kernel launches {kern.launches} ({dict(kern.launches_by_k)} by K), matrix kernel "
+        f"launches {hamming_kernel.hamming_penalty_matrix.launches}"
+    )
+    return kern.launches, hamming_kernel.hamming_penalty_matrix.launches, kern.launches_by_k[2], log
+
+
+def phase_tracker_card_vs_cpu(seq, card_log):
+    """The first frames through Tracker(device="cpu"): the same state and
+    path per frame, the same keyframes, bindings equal on >= 98% of the
+    keypoints, poses within 1e-3."""
+    tracker = make_tracker(seq, "cpu")
+    report = []
+    for i, frame in enumerate(seq.frames[:N_TRACKER_CPU_FRAMES]):
+        cpu, card = tracker_step(tracker, frame), card_log[i]
+        same = float((cpu["mp_ids"] == card["mp_ids"]).mean())
+        dR = float(np.abs(cpu["R"] - card["R"]).max())
+        dt = float(np.abs(cpu["t"] - card["t"]).max())
+        report.append({"frame": i, "state": cpu["state"], "path": cpu["path"],
+                       "keyframes": cpu["keyframes"], "mp_ids_equal": same,
+                       "pose_R_maxdiff": dR, "pose_t_maxdiff": dt})
+        check((cpu["state"], cpu["path"], cpu["keyframes"], cpu["mappoints"])
+              == (card["state"], card["path"], card["keyframes"], card["mappoints"])
+              and same >= 0.98 and dR < 1e-3 and dt < 1e-3,
+              f"tracker card against CPU, frame {i}: {report[-1]} against card state "
+              f"{card['state']}, path {card['path']}, keyframes {card['keyframes']}")
+    print(f"phase 9 tracker card against CPU: {json.dumps(report)}")
+
+
 def main():
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no GPU")
@@ -553,16 +723,26 @@ def main():
     fused_launches, fused_matrix, kept = phase_fused_step(device, frames, card)
     phase_fused_card_vs_cpu(kept)
 
-    search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024)]
+    # 8. tracker, 9. card against CPU
+    t0 = time.perf_counter()
+    seq = generate_sequence(n_frames=N_TRACKER_FRAMES, h=H, w=W)
+    print(f"rendered {N_TRACKER_FRAMES} stereo frames at {W}x{H} in "
+          f"{time.perf_counter() - t0:.1f} s (fx {seq.fx:.1f}, baseline {seq.baseline} m)")
+    tracker_launches, tracker_matrix, tracker_k2, tracker_log = phase_tracker(device, seq, card)
+    phase_tracker_card_vs_cpu(seq, tracker_log)
+
+    search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
+    top2 = topk_rows[(1024, 1024, 2)]
     print(json.dumps({"kernels": [
         {
             "name": "hamming_penalty_topk",
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_topk.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            "launches": hot_launches + fused_launches,
+            "launches": hot_launches + fused_launches + tracker_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
+            "launches_tracker": tracker_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -574,16 +754,22 @@ def main():
             "library_ms": None,   # no one PyTorch call computes it; see the two below
             "replaced_ms": local_map["replaced_ms"],
             "matrix_plus_torch_topk_ms": local_map["matrix_plus_torch_topk_ms"],
+            # its second use: match_fisheye's best and second best (K = 2)
+            "k2": {"shape": [1024, 1024], "k": 2, "launches_tracker": tracker_k2,
+                   **{key: top2[key] for key in (
+                       "ms", "plain_ms", "bound_ms", "bound_by", "timer", "replaced_ms",
+                       "matrix_plus_torch_topk_ms")}},
         },
         {
             "name": "hamming_penalty",
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_penalty.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            "launches": hot_matrix + fused_matrix,   # 0: no tracker path calls it any more
+            "launches": hot_matrix + fused_matrix + tracker_matrix,   # 0: no tracker path calls it
             "on_a_driven_path": False,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
+            "launches_tracker": tracker_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],

@@ -7,6 +7,7 @@ from fasttrack_tpu_torch.cameras.host import (  # noqa: F401
     host_camera,
     in_image_np,
     project_np,
+    unproject_np,
 )
 from fasttrack_tpu_torch.cameras.models import (  # noqa: F401
     FISHEYE_KB8,

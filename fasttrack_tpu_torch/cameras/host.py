@@ -1,7 +1,7 @@
 """Host (NumPy) camera projection: the CPU mirror of cameras.models.
 
-Port of fasttrack_tpu/cameras/host.py (projection and the two gates the
-tracker's host side uses; unprojection comes with local mapping). The
+Port of fasttrack_tpu/cameras/host.py (projection, unprojection and the two
+gates the tracker's host side uses). The
 tracker packs its query blocks on the host every frame, so a camera is
 read back from its device once, with `host_camera`, and the helpers take
 that copy.
@@ -50,6 +50,27 @@ def project_np(cam: HostCamera, X: np.ndarray) -> np.ndarray:
         poly = 1.0 + t2 * (p[4] + t2 * (p[5] + t2 * (p[6] + t2 * p[7])))
         scale = np.where(r2 < 1e-16, 1.0, theta * poly / r)
         return np.stack([p[0] * scale * x + p[2], p[1] * scale * y + p[3]], axis=-1)
+    raise ValueError(cam.kind)
+
+
+def unproject_np(cam: HostCamera, uv: np.ndarray, iters: int = 10) -> np.ndarray:
+    """Pixels (..., 2) -> unit-depth rays (..., 3) with z == 1."""
+    p = cam.params
+    uv = np.asarray(uv, np.float64)
+    mx = (uv[..., 0] - p[2]) / p[0]
+    my = (uv[..., 1] - p[3]) / p[1]
+    if cam.kind == PINHOLE:
+        return np.stack([mx, my, np.ones_like(mx)], axis=-1)
+    if cam.kind == FISHEYE_KB8:
+        theta_d = np.sqrt(mx * mx + my * my)
+        theta = np.clip(theta_d, -np.pi / 2, np.pi / 2)
+        for _ in range(iters):  # Newton (KannalaBrandt8.cpp:111-176)
+            t2 = theta * theta
+            f = theta * (1.0 + t2 * (p[4] + t2 * (p[5] + t2 * (p[6] + t2 * p[7])))) - theta_d
+            df = 1.0 + t2 * (3 * p[4] + t2 * (5 * p[5] + t2 * (7 * p[6] + t2 * 9 * p[7])))
+            theta = theta - f / np.maximum(df, 1e-6)
+        scale = np.where(theta_d < 1e-8, 1.0, np.tan(theta) / np.maximum(theta_d, 1e-12))
+        return np.stack([mx * scale, my * scale, np.ones_like(mx)], axis=-1)
     raise ValueError(cam.kind)
 
 

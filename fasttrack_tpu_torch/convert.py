@@ -59,6 +59,11 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
 
 
+def tensor_from_numpy(a, dtype, device=None) -> torch.Tensor:
+    """One host->device upload of `a` as numpy `dtype`."""
+    return _as_tensor(a, dtype, resolve(device))
+
+
 def map_from_numpy(u, v, desc, pos, radius, lmin, lmax, ok, device=None) -> MapArrays:
     device = resolve(device)
 

@@ -21,6 +21,7 @@ plain version.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -175,9 +176,13 @@ def hamming_penalty_topk(q_desc, kp_desc, q_pen, kp_pen, k):
         msg = lib.hamming_topk_error_string(err).decode()
         raise RuntimeError(f"hamming_topk kernel launch failed: {msg} ({err})")
     hamming_penalty_topk.launches += 1
+    hamming_penalty_topk.launches_by_k[K] += 1
     return values, indices
 
 
-# Kernel launches since the count was last set to 0 (CPU calls not counted).
+# Kernel launches since the count was last set to 0 (CPU calls not counted);
+# for the top-K kernel also by list length K (64 in the window matchers, 2 in
+# match_fisheye), cleared with `.clear()`.
 hamming_penalty_matrix.launches = 0
 hamming_penalty_topk.launches = 0
+hamming_penalty_topk.launches_by_k = collections.Counter()

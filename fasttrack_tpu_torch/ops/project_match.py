@@ -2,7 +2,8 @@
 
 Port of fasttrack_tpu/ops/project_match.py: `search_by_projection`, the
 rotation-histogram filter, the per-keypoint dedup and the two matchers
-built from them (`twm_match`, `tlm_match`). The TOP_K best Hamming
+built from them (`twm_match`, `tlm_match`, and their `_packed` forms that
+take the query side as one uploaded block). The TOP_K best Hamming
 candidates of every query come from the fused Hamming+penalty+top-K kernel
 (validity and the taken mask as rank-1 penalties; the (M, N) matrix is
 never formed on the card); they are then gated by the square window and
@@ -199,3 +200,24 @@ def tlm_match(
     )
     keep = res.ok & resolve_duplicates(res, kp_x.shape[0])
     return res.idx, keep
+
+
+def twm_match_packed(q7, q_desc, kp_x, kp_y, kp_desc, kp_level, kp_valid, kp_angle):
+    """twm_match with the query side packed into ONE (7, M) f32 upload
+    [u, v, radius, level_min, level_max, valid, angle]: every separate
+    host->device array is its own transfer."""
+    return twm_match(
+        q7[0], q7[1], q_desc, q7[2],
+        q7[3].to(torch.int32), q7[4].to(torch.int32), q7[5] > 0.5,
+        kp_x, kp_y, kp_desc, kp_level, kp_valid, q7[6], kp_angle,
+    )
+
+
+def tlm_match_packed(q6, q_desc, kp_x, kp_y, kp_desc, kp_level, kp_valid, taken_f32):
+    """tlm_match with the query side packed into ONE (6, M) f32 upload
+    [u, v, radius, level_min, level_max, valid]."""
+    return tlm_match(
+        q6[0], q6[1], q_desc, q6[2],
+        q6[3].to(torch.int32), q6[4].to(torch.int32), q6[5] > 0.5,
+        kp_x, kp_y, kp_desc, kp_level, kp_valid, taken_f32 > 0.5,
+    )

@@ -1,6 +1,9 @@
-"""Rectified stereo descriptor matching with sub-pixel refinement.
+"""Rectified stereo descriptor matching with sub-pixel refinement, and the
+brute-force ratio matcher.
 
-Port of fasttrack_tpu/ops/stereo_match.py:match_rectified. The TOP_K
+Port of fasttrack_tpu/ops/stereo_match.py: `match_rectified` and
+`match_fisheye` (all-pairs Hamming, top-2, Lowe ratio: one launch of the
+fused kernel with K = 2). For `match_rectified`, the TOP_K
 nearest right keypoints of every left keypoint by penalised Hamming
 distance come from the fused Hamming+penalty+top-K kernel (the (N_L, N_R)
 matrix is never formed on the card); they are then gated by the row
@@ -121,3 +124,28 @@ def match_rectified(
         torch.where(good, depth, -1.0),
         good,
     )
+
+
+class FisheyeMatches(NamedTuple):
+    idx_right: torch.Tensor  # (N,) int32 best right index
+    valid: torch.Tensor      # (N,) bool (Lowe-ratio accepted)
+
+
+def match_fisheye(
+    l_desc: torch.Tensor, l_valid: torch.Tensor,
+    r_desc: torch.Tensor, r_valid: torch.Tensor,
+    ratio: float = 0.7,
+    max_dist: int = TH_HIGH,
+) -> FisheyeMatches:
+    """Brute-force all-pairs Hamming + Lowe ratio
+    (fisheyeStereoMatchKernel, StereoMatchKernel.cu:311-348). Best and
+    second best of every row come from one launch of the fused
+    Hamming+penalty+top-K kernel with K = 2. A row whose query is invalid
+    ties at 1e9 (2e9 on invalid columns) across all columns; the kernel
+    orders equal values by ascending column, as lax.top_k does."""
+    top2, ni2 = hamming_penalty_topk(
+        l_desc, r_desc, valid_penalty(l_valid), valid_penalty(r_valid), 2
+    )
+    best, second = top2[:, 0], top2[:, 1]
+    ok = (best <= max_dist) & (best < ratio * second)
+    return FisheyeMatches(ni2[:, 0].to(torch.int32), ok)

@@ -13,7 +13,8 @@ on the host around the device chain, without its map, keyframe and atlas
 classes: a point store as plain arrays (`new_store`, `store_add_points`),
 the TrackWithMotionModel query block (`twm_query_block`), the local-map
 candidates (`tlm_candidate_block`), the binding bookkeeping after the fetch
-(`bind_fused_frame`) and the pose's way back onto SO(3) (`orthonormalize`).
+(`bind_fused_frame`) and the pose's way back onto SO(3) (`orthonormalize`,
+re-exported from nputils).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from fasttrack_tpu_torch.cameras.host import (
     in_image_np,
     project_np,
 )
+from fasttrack_tpu_torch.nputils import orthonormalize  # noqa: F401  (its one copy)
 
 MIN_KP_OVERLAP = 0.97
 MAX_DESC_BITS = 4.0
@@ -139,17 +141,6 @@ def golden_compare(a: dict, b: dict) -> dict:
 
 
 TLM_CAP = 4096  # fixed local-map candidate capacity (Tracker._TLM_CAP)
-
-
-def orthonormalize(R: np.ndarray) -> np.ndarray:
-    """Project a near-rotation back onto SO(3) (SVD, det-corrected), as
-    fasttrack_tpu/nputils.py does. A pose that comes back from the f32
-    device optimizer is re-orthonormalized before it enters the velocity
-    model: raw matrices compound their round-off through that composition
-    chain from frame to frame."""
-    U, _, Vt = np.linalg.svd(R)
-    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
-    return U @ D @ Vt
 
 
 def new_store(cap: int) -> dict:

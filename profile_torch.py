@@ -1,4 +1,4 @@
-"""Where the PyTorch port's two tracking paths spend their time, on one GPU.
+"""Where the PyTorch port's tracking paths spend their time, on one GPU.
 
     python3 profile_torch.py [--trace FILE.json] [--earlier-matrix-source FILE.cu ...]
 
@@ -12,6 +12,11 @@ candidate slots):
 - from torch.profiler over 3 frames: kernel launches per frame, device
   busy time per frame, the device's idle share of the window, and the
   kernels with the most device time;
+then, for the tracker (Tracker.track_stereo over chip_smoke.py's rendered
+sequence, real map, keyframes), the same profile of three fused frames in the
+middle of the run, and the host's share of a fused frame outside the device
+chain (packing the query blocks, dispatch, the wait in the one fetch, the
+bookkeeping after it) as the tracker's own stats record it;
 then the device time per call of both Hamming kernels against their plain
 versions at the paths' shapes, of an empty kernel (the floor under any
 kernel), of a plain fill of the matrix kernel's output (the same bytes,
@@ -84,8 +89,8 @@ def median_stages(steps, names, label, card):
           + ", ".join(f"{n} {v:.3f}" for n, v in zip(names, st)))
 
 
-def profile_frames(frame, label, card, trace=None, n=3):
-    for _ in range(3):
+def profile_frames(frame, label, card, trace=None, n=3, warmup=3):
+    for _ in range(warmup):
         frame()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -190,6 +195,42 @@ def fused_step(dev, card, cam, bf, min_z, frames):
     profile_frames(frame, "fused step", card)
 
 
+def tracker_frames(dev, card, n_warmup=10):
+    """Three fused frames of Tracker.track_stereo on the rendered sequence,
+    after `n_warmup` frames that initialize the map and settle the path."""
+    seq = cs.generate_sequence(n_frames=n_warmup + 3, h=cs.H, w=cs.W)
+    tracker = cs.make_tracker(seq, dev)
+    rows = [cs.tracker_step(tracker, f) for f in seq.frames[:n_warmup]]
+    cs.check(rows[-1]["state"] == "OK" and rows[-1]["path"] == "fused",
+             f"the tracker did not reach the fused path in {n_warmup} frames: {rows[-1]['state']}")
+    todo = iter(seq.frames[n_warmup:])
+
+    def frame():
+        f = next(todo)
+        tracker.track_stereo(f.left, f.right, f.timestamp)
+
+    n_before = len(tracker.stats.series["fused_dispatch"])
+    profile_frames(frame, "tracker, fused frame", card, warmup=0)
+    series = tracker.stats.series
+    cs.check(len(series["fused_dispatch"]) == n_before + 3,
+             "a profiled tracker frame went stepwise")
+    # unprofiled: the host's clock over the settled fused frames before the profile
+    settled = slice(3, n_before)
+    print(json.dumps({
+        "path": "tracker, fused frame, unprofiled", "card": card, "frames": n_before - 3,
+        "ms_per_frame_median": float(
+            np.median([r["ms"] for r in rows if r["path"] == "fused"][3:])),
+        "host_ms_median": {
+            "pack_query_blocks": float(np.median(series["fused_host_pre"][settled])),
+            "dispatch_device_chain": float(np.median(series["fused_dispatch"][settled])),
+            "wait_in_fetch": float(np.median(series["sync_ms"][-(n_before - 3) - 3:-3])),
+            "bookkeeping_after_fetch": float(np.median(series["fused_host_post"][settled])),
+        },
+        "fetches_per_frame": 1, "store_uploads": len(series["store_uploads"]),
+        "keyframes": tracker.atlas.current.n_keyframes(),
+    }))
+
+
 EMPTY_KERNEL_SOURCE = """
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -280,6 +321,14 @@ def kernel_times(dev, card, earlier_sources):
         dm = matrix(*a)
         row["torch_topk_alone_us"] = us(lambda: torch.topk(dm, cs.TOP_K, largest=False))
         print(f"hamming_penalty_topk device time at {(M, N)} ({card}): {json.dumps(row)}")
+    a = cs.kernel_inputs(rng, 1024, 1024, dev, "validity")   # match_fisheye's call
+    row = {
+        "bound_us": round(cs.bound_ms(1024, 1024, 1024 * 2 * 12)[0] * 1e3, 3),
+        "kernel_us": [us(lambda: topk(*a, 2)), us(lambda: topk(*a, 2))],
+        "plain_us": us(lambda: topk_plain(*a, 2)),
+        "matrix_kernel_plus_torch_topk_us": us(lambda: torch.topk(matrix(*a), 2, largest=False)),
+    }
+    print(f"hamming_penalty_topk K=2 device time at (1024, 1024) ({card}): {json.dumps(row)}")
 
 
 def main():
@@ -299,6 +348,7 @@ def main():
     min_z = torch.tensor(cs.BF / cs.INTRINSICS[0], device=dev)
     hot_path(dev, card, cam, bf, min_z, frames, args.trace)
     fused_step(dev, card, cam, bf, min_z, frames)
+    tracker_frames(dev, card)
     kernel_times(dev, card, args.earlier_matrix_source)
 
 

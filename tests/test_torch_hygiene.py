@@ -9,7 +9,8 @@
   sampling offsets equal the JAX package's.
 - The port runs on the card: a constructor given `device=None` goes through
   `device.resolve`, which fails where there is no card; `device="cpu"` is
-  honoured.
+  honoured. So does `Tracker`, whose tensors then follow its device.
+- `nputils.device_fetch` returns what it was given, in one copy.
 """
 
 import ast
@@ -20,11 +21,13 @@ import pytest
 import torch
 
 import fasttrack_tpu_torch
-from fasttrack_tpu_torch import cameras, convert, device, geometry
+from fasttrack_tpu_torch import cameras, convert, device, geometry, nputils, tracking
 from fasttrack_tpu.ops import descriptor as jax_descriptor
 from fasttrack_tpu.ops.pattern import PATTERN as JAX_PATTERN
 from fasttrack_tpu_torch.ops import descriptor
+from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.ops.pattern import PATTERN
+from fasttrack_tpu_torch.slam_map import Atlas
 
 PACKAGE = Path(fasttrack_tpu_torch.__file__).parent
 ROOT = PACKAGE.parent
@@ -51,6 +54,9 @@ def test_package_has_the_slice_modules():
         "optim/pose_opt.py", "frame_pipeline.py", "convert.py",
         "device.py", "cameras/host.py", "fused_track.py", "parity.py", "ops/topk.py",
         "ops/cuda_build.py",
+        "nputils.py", "stats.py", "kernels.py", "tracking.py", "slam_map/mappoint.py",
+        "slam_map/keyframe.py", "slam_map/map.py", "slam_map/atlas.py",
+        "datasets/synthetic.py", "evaluation/ate.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu"):
@@ -104,6 +110,7 @@ CONSTRUCTORS = {
     "query_block_from_numpy": (convert.query_block_from_numpy, (
         np.zeros((7, 4)), np.zeros(4), np.zeros(6), np.zeros(6, bool))),
     "keypoints_from_numpy": (convert.keypoints_from_numpy, _keypoint_args()),
+    "tensor_from_numpy": (convert.tensor_from_numpy, (np.arange(3), np.float32)),
 }
 
 
@@ -153,3 +160,51 @@ def test_max_dist_of_the_store_is_made_finite():
     with pytest.raises(ValueError):
         convert.store_from_numpy(np.zeros((4, 3)), np.ones((3, 256), np.int8), np.zeros((4, 3)),
                                  np.zeros(4), np.zeros(4), device="cpu")
+
+
+def test_tracker_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    cfg = OrbConfig(240, 320, n_features=256, n_levels=4)
+    tr = tracking.Tracker(cam, cfg, 28.0, Atlas(), device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert all(t.device.type == "cpu" for t in (tr.camera.params, tr._bf_dev, tr._minz_dev))
+    assert tr._upload(np.zeros(3), np.float32).device.type == "cpu"
+    assert tr.baseline == pytest.approx(28.0 / 256.0)
+    assert tr.th_depth == pytest.approx(40 * 28.0 / 256.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tracking.Tracker(cam, cfg, 28.0, Atlas())
+    asked = []
+
+    def fake_resolve(dev=None):
+        asked.append(dev)
+        return torch.device("cpu")
+
+    monkeypatch.setattr(tracking, "resolve", fake_resolve)
+    tracking.Tracker(cam, cfg, 28.0, Atlas())
+    assert asked == [None]
+
+
+def test_device_fetch_round_trips_in_argument_order(rng):
+    arrays = [rng.normal(size=(3, 5)).astype(np.float32), rng.random(7) > 0.5,
+              rng.integers(-9, 9, (2, 2, 3)), rng.integers(0, 255, 11).astype(np.uint8),
+              np.float32(2.5)]
+    out = nputils.device_fetch(*(torch.from_numpy(np.array(a)) for a in arrays))
+    assert len(out) == len(arrays)
+    for got, want in zip(out, arrays):
+        assert got.dtype == np.asarray(want).dtype and got.shape == np.asarray(want).shape
+        np.testing.assert_array_equal(got, want)
+    single = nputils.device_fetch(torch.from_numpy(arrays[0].copy()))
+    np.testing.assert_array_equal(single, arrays[0])
+
+
+def test_orthonormalize_has_one_copy(rng):
+    from fasttrack_tpu.nputils import orthonormalize as jax_orthonormalize
+    from fasttrack_tpu_torch import parity
+
+    assert parity.orthonormalize is nputils.orthonormalize
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0] + 1e-4 * rng.normal(size=(3, 3))
+    got = nputils.orthonormalize(R)
+    np.testing.assert_array_equal(got, jax_orthonormalize(R))
+    np.testing.assert_allclose(got @ got.T, np.eye(3), atol=1e-14)
+    assert np.linalg.det(got) == pytest.approx(1.0)   # a rotation, even from a reflection

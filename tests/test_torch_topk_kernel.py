@@ -159,3 +159,24 @@ def test_kernel_equals_plain_on_gpu(rng, cuda_device, shape):
     assert hamming_penalty_topk.launches == before + 1
     want_v, want_i = hamming_penalty_topk_reference(*args, TOP_K)
     assert torch.equal(values, want_v) and torch.equal(indices, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 1024), (1000, 900)])
+def test_match_fisheye_launches_the_kernel_with_k_2_on_gpu(rng, cuda_device, shape):
+    """K = 2 with validity penalties, as match_fisheye calls the kernel: rows
+    whose query is invalid tie at 1e9 across all columns."""
+    from fasttrack_tpu_torch.ops.stereo_match import match_fisheye
+
+    M, N = shape
+    l_desc, r_desc = descriptors(rng, M, 9), descriptors(rng, N, 9)
+    l_valid, r_valid = rng.random(M) > 0.2, rng.random(N) > 0.2
+    on = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+          for a in (l_desc, l_valid, r_desc, r_valid)]
+    before = hamming_penalty_topk.launches_by_k[2]
+    got = match_fisheye(*on)
+    torch.cuda.synchronize()
+    assert hamming_penalty_topk.launches_by_k[2] == before + 1
+    want = match_fisheye(*(t.cpu() for t in on))      # the plain version, on the CPU
+    assert torch.equal(got.idx_right.cpu(), want.idx_right)
+    assert torch.equal(got.valid.cpu(), want.valid)
