@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch port (fasttrack_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ba-float32]
+
+`--ba-float32` solves the local bundle adjustment in float32, as the JAX
+package does, where the port solves in float64 (ba_assembly.SOLVE_DTYPE):
+phases 10 and 11 then show what that costs (a larger ATE; card and CPU part
+at the first adjustment, so phase 11 fails).
 
 Phases, each printing a line; any failure raises and exits non-zero:
 1. device: requires CUDA; prints the card's name and power limit;
@@ -8,9 +13,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
    by side;
 3. kernels against plain: hamming_penalty_matrix (bitwise equal) and the
    fused hamming_penalty_topk (values and indices equal) against their
-   plain PyTorch versions at the tracker's shapes, ragged ones, N < K, an
-   input built to tie, and K = 2 as match_fisheye calls it (validity
-   penalties of 1e9, so that whole rows tie); device time of each beside
+   plain PyTorch versions at the tracker's shapes, the local mapper's
+   (10240 x 1024 stacked triangulation rows, a 3000 x 1024 fusion matrix),
+   ragged ones, N < K, an input built to tie, and K = 2 as match_fisheye
+   calls it (validity penalties of 1e9, so that whole rows tie); device
+   time of each beside
    its plain version,
    what the fused kernel replaces (matrix kernel + stable sort) and
    matrix kernel + torch.topk;
@@ -34,25 +41,43 @@ Phases, each printing a line; any failure raises and exits non-zero:
    map points over the real map, with per-frame checks, the ATE against
    ground truth and ms/frame;
 9. tracker, card against CPU: the first frames again through
-   Tracker(device="cpu"): states, keyframes, bindings and poses.
+   Tracker(device="cpu"): states, keyframes, bindings and poses;
+10. system, inline mapping: the whole rendered sequence through
+   System(Settings(...), Sensor.STEREO, vocabulary=False).track_stereo:
+   tracker -> keyframe -> LocalMapper.process_keyframe (cull points,
+   triangulate against 10 neighbours in one 10240-row top-K launch, fuse
+   duplicates with one matrix launch per target keyframe, local bundle
+   adjustment over 16 keyframes x 2048 points, cull keyframes), with
+   per-frame and per-keyframe checks, each adjustment's chi2 before and
+   after, the ATE against ground truth, ms/frame and ms/keyframe by step;
+11. system, card against CPU: the first frames (three keyframes, one
+   adjustment) again through System(device="cpu"): states, paths, keyframe
+   frames, map-point counts and poses;
+12. system, mapping on its own thread (async_mapping=True): every frame OK,
+   the mapper drained and idle after shutdown, the ATE.
+
+Phases 8 to 12 share one rendered sequence: phase 8 tracks its first 40
+frames with no mapper, so that its ATE stands beside the system's over the
+same frames.
 
 The line before the last two is a JSON object of the kernels; the last is
-{"ok": true, "device": {...}}. Each kernel's `launches` is what the three
-paths (phases 4, 6 and 8) launched, counted from 0 at each path's start. The
-matrix kernel's is 0: since its top-K was fused no tracker path calls it
-(modules of later slices will), and phase 3 alone holds it against plain.
+{"ok": true, "device": {...}}. Each kernel's `launches` is what the four
+paths (phases 4, 6, 8 and 10) launched, counted from 0 at each path's start.
+The matrix kernel is launched by the system path alone (map-point fusion);
+no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from fasttrack_tpu_torch import convert, fused_track, parity
+from fasttrack_tpu_torch import ba_assembly, convert, fused_track, local_mapping, parity
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
 from fasttrack_tpu_torch.datasets.synthetic import generate_sequence
 from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
@@ -68,7 +93,10 @@ from fasttrack_tpu_torch.ops import hamming_kernel
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.ops.stereo_match import valid_penalty
 from fasttrack_tpu_torch.ops.topk import top_k
+from fasttrack_tpu_torch.optim import ba_core
+from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.slam_map import Atlas
+from fasttrack_tpu_torch.system import Sensor, System
 from fasttrack_tpu_torch.tracking import Tracker
 
 H, W = 480, 752
@@ -77,23 +105,29 @@ INTRINSICS = (458.654, 457.296, 367.215, 248.375)  # EuRoC cam0, as bench.py
 BF = 47.9
 N_MAP = 2048
 N_WARMUP, N_FRAMES = 3, 10      # hot path
-N_FUSED_FRAMES = 30             # fused step, after the same warm-up
+N_FUSED_FRAMES = 12             # fused step, after the same warm-up
 STORE_CAP = 8192                # rows of the device-resident point store
 KEYFRAME_EVERY = 4              # frames between insertions of new map points
 STEP = (3, 5)  # (dy, dx) px the view moves per frame: content moves (-5, -3)
 TOP_K = 64
-MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (1200, 1000)]
+FUSION_SHAPE = (3000, 1024)     # candidate points x keypoints of a fusion's reverse pass
+MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (1200, 1000), FUSION_SHAPE]
+EPI_ROWS = 10 * 1024            # the mapper's 10 neighbour keyframes, stacked
 # (M, N, kind of input, K); 33 x 40 has N < K. "validity": what match_fisheye
 # gives the kernel (penalties 0 or 1e9, invalid rows tie across all columns).
 TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 1024, "random", 64),
               (1200, 1000, "random", 64), (33, 40, "random", 64), (1024, 1024, "tied", 64),
-              (1024, 1024, "validity", 2), (1000, 900, "validity", 2), (1024, 1024, "tied", 2)]
-N_TRACKER_FRAMES = 40           # the rendered sequence of phase 8
+              (1024, 1024, "validity", 2), (1000, 900, "validity", 2), (1024, 1024, "tied", 2),
+              (EPI_ROWS, 1024, "validity", 64)]
+N_SYSTEM_FRAMES = 100           # the rendered sequence; phases 10 and 12 (its first 40)
+N_TRACKER_FRAMES = 40           # of them, phase 8 (no mapper)
 N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
 # ATE RMSE limit of phase 8 (m). The same 40 frames through Tracker(device="cpu")
 # give 0.0033 m; the limit leaves room for f32 sums taken in another order and
 # for a keyframe decision that falls a frame earlier or later.
 ATE_LIMIT_M = 0.02
+N_ASYNC_FRAMES = 50             # phase 12: three keyframes, one adjustment
+MAX_SYSTEM_CPU_FRAMES = 48      # phase 11 stops after the frame that follows the third keyframe
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -558,11 +592,12 @@ def phase_fused_card_vs_cpu(kept):
     print(f"phase 7 fused step card against CPU: {json.dumps(report)}")
 
 
-def tracker_step(tracker, frame) -> dict:
-    """One frame of the rendered sequence through `tracker.track_stereo`,
-    timed on the host's clock (the call ends after its last fetch), and
-    what the checks read. A frame went stepwise if it recorded
-    `orb_extraction` (the fused path records it only when it falls back)."""
+def tracker_step(tracker, frame, entry=None) -> dict:
+    """One frame of the rendered sequence through `track_stereo` of `entry`
+    (a System; by default the tracker itself), timed on the host's clock
+    (the call ends after its last fetch), and what the checks read. A frame
+    went stepwise if it recorded `orb_extraction` (the fused path records it
+    only when it falls back)."""
     series = tracker.stats.series
     counts = {k: len(series[k]) for k in ("orb_extraction", "device_fetches", "store_uploads")}
     kern = hamming_kernel.hamming_penalty_topk
@@ -570,7 +605,7 @@ def tracker_step(tracker, frame) -> dict:
     if tracker.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tracker.track_stereo(frame.left, frame.right, frame.timestamp)
+    (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
     ms = (time.perf_counter() - t0) * 1e3
     last, m = tracker.last_frame, tracker.atlas.current
     return {
@@ -591,16 +626,29 @@ def make_tracker(seq, device) -> Tracker:
     return Tracker(cam, CFG, seq.fx * seq.baseline, Atlas(), device=device)
 
 
-def phase_tracker(device, seq, card):
-    """The whole tracking thread on the card: Tracker.track_stereo over the
-    rendered sequence, from the first frame, with no local mapper (the
-    tracker makes the close stereo points of each keyframe itself)."""
+def trajectory_ate(trajectory, seq) -> dict:
+    t_est = np.asarray([t for t, _, _ in trajectory])
+    p_est = np.asarray([-R.T @ t_ for _, R, t_ in trajectory])
+    return absolute_trajectory_error(t_est, p_est, seq.gt_t, seq.gt_pos)
+
+
+def reset_launch_counts():
     kern = hamming_kernel.hamming_penalty_topk
     kern.launches = 0
     kern.launches_by_k.clear()
+    kern.launches_by_rows.clear()
     hamming_kernel.hamming_penalty_matrix.launches = 0
+    return kern
+
+
+def phase_tracker(device, seq, card):
+    """The whole tracking thread on the card: Tracker.track_stereo over the
+    first N_TRACKER_FRAMES frames of the rendered sequence, with no local
+    mapper (the tracker makes the close stereo points of each keyframe
+    itself)."""
+    kern = reset_launch_counts()
     tracker = make_tracker(seq, device)
-    log = [tracker_step(tracker, f) for f in seq.frames]
+    log = [tracker_step(tracker, f) for f in seq.frames[:N_TRACKER_FRAMES]]
 
     first = log[0]
     check(first["state"] == "OK" and first["stereo"] > 300 and first["keyframes"] == 1,
@@ -639,11 +687,8 @@ def phase_tracker(device, seq, card):
         kf_before = r["keyframes"]
     uploads = len(series["store_uploads"])
 
-    traj = tracker.trajectory
-    t_est = np.asarray([t for t, _, _ in traj])
-    p_est = np.asarray([-R.T @ t_ for _, R, t_ in traj])
-    ate = absolute_trajectory_error(t_est, p_est, seq.gt_t, seq.gt_pos)
-    check(ate["n"] == len(seq.frames) and ate["rmse"] < ATE_LIMIT_M,
+    ate = trajectory_ate(tracker.trajectory, seq)
+    check(ate["n"] == N_TRACKER_FRAMES and ate["rmse"] < ATE_LIMIT_M,
           f"tracker ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
 
     times = [r["ms"] for r in fused[N_WARMUP:]]
@@ -669,7 +714,8 @@ def phase_tracker(device, seq, card):
         f"top-k kernel launches {kern.launches} ({dict(kern.launches_by_k)} by K), matrix kernel "
         f"launches {hamming_kernel.hamming_penalty_matrix.launches}"
     )
-    return kern.launches, hamming_kernel.hamming_penalty_matrix.launches, kern.launches_by_k[2], log
+    return (kern.launches, hamming_kernel.hamming_penalty_matrix.launches, kern.launches_by_k[2],
+            log, ate["rmse"])
 
 
 def phase_tracker_card_vs_cpu(seq, card_log):
@@ -694,7 +740,261 @@ def phase_tracker_card_vs_cpu(seq, card_log):
     print(f"phase 9 tracker card against CPU: {json.dumps(report)}")
 
 
+def make_system(seq, device, async_mapping=False) -> System:
+    """The stereo system at full width, built directly (no YAML)."""
+    settings = Settings(
+        camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device),
+        bf=seq.fx * seq.baseline, baseline=seq.baseline, width=W, height=H,
+        n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
+    )
+    return System(settings, Sensor.STEREO, async_mapping=async_mapping, vocabulary=False,
+                  device=device)
+
+
+MAPPER_COUNTS = ("lm_triangulation_passes", "lm_fuse_searches", "lm_local_bas",
+                 "lm_points_culled", "lm_points_triangulated", "lm_points_fused",
+                 "lm_keyframes_culled", "lm_device_fetches")
+
+
+def watch_mapper(system, keyframes):
+    """Wraps the inline mapper's process_keyframe: per keyframe, what it
+    launched (both kernels' counts before and after) and what its own
+    counters say it did, appended to `keyframes`."""
+    mapper = system.local_mapper
+    series = system.stats.series
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    inner = mapper.process_keyframe
+
+    def process_keyframe(kf):
+        before = {k: sum(series[k]) for k in MAPPER_COUNTS}
+        topk, rows, mat = kern.launches, kern.launches_by_rows[EPI_ROWS], matrix.launches
+        inner(kf)
+        row = {k: int(sum(series[k]) - before[k]) for k in MAPPER_COUNTS}
+        row.update(kid=kf.kid, frame_id=kf.frame_id, topk=kern.launches - topk,
+                   topk_epi_rows=kern.launches_by_rows[EPI_ROWS] - rows,
+                   matrix=matrix.launches - mat)
+        keyframes.append(row)
+
+    mapper.process_keyframe = process_keyframe
+
+
+def watch_bundle_adjustment(adjustments):
+    """Wraps the solver the mapper calls: per adjustment, the summed chi2 of
+    its final inliers at the poses and points it was given and at those it
+    returns (one fetch more per adjustment, inside its timed step)."""
+    inner = local_mapping.local_bundle_adjustment
+
+    def solve(prob, cam, bf):
+        res = inner(prob, cam, bf)
+
+        def cost(poses, points):
+            r, _ = ba_core.residuals(poses, points, cam, bf, prob.obs_uv, prob.obs_ur)
+            chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
+            return torch.where(res.inlier_mask, chi2, 0.0).sum()
+
+        finite = torch.isfinite(res.poses.R).all() & torch.isfinite(res.poses.t).all()
+        before, after, ok, n_inl, n_obs = (x.item() for x in (
+            cost(prob.poses, prob.points), cost(res.poses, res.points), finite,
+            res.inlier_mask.sum(), prob.mask.sum()))
+        adjustments.append({"chi2_before": before, "chi2_after": after, "finite": bool(ok),
+                            "inliers": int(n_inl), "observations": int(n_obs),
+                            "cameras": int(prob.mask.any(dim=0).sum()),
+                            "points": int(prob.point_free.sum())})
+        return res
+
+    local_mapping.local_bundle_adjustment = solve
+    return inner
+
+
+def phase_system(device, seq, card, tracker_ate):
+    """The system a user calls, inline mapping, on the card: every frame of
+    the rendered sequence through System.track_stereo."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = make_system(seq, device)
+    keyframes, adjustments = [], []
+    watch_mapper(system, keyframes)
+    solver = watch_bundle_adjustment(adjustments)
+    try:
+        log = []
+        for f in seq.frames:
+            n_kf = len(keyframes)
+            r = tracker_step(system.tracker, f, entry=system)
+            r["mapped"] = keyframes[n_kf:]      # the keyframes this frame handed to the mapper
+            log.append(r)
+    finally:
+        local_mapping.local_bundle_adjustment = solver
+    system.shutdown()
+
+    series = system.stats.series
+    for i, r in enumerate(log):
+        check(r["state"] == "OK", f"system frame {i}: state {r['state']}")
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"system frame {i}: pose")
+        check(len(r["mapped"]) <= 1, f"system frame {i}: {len(r['mapped'])} keyframes")
+        if r["path"] == "fused":
+            mapper_topk = sum(k["topk"] for k in r["mapped"])
+            check(r["fetches"] == 1, f"system frame {i}: {r['fetches']} tracker fetches, fused path")
+            check(r["launches"] - mapper_topk == 3 and r["launches_k2"] == 0,
+                  f"system frame {i}: {r['launches'] - mapper_topk} top-k launches of the tracker "
+                  "on the fused path, not 3")
+    fused = [r for r in log[2:] if r["path"] == "fused"]
+    check(len(fused) >= len(log) - 6, f"only {len(fused)} of {len(log) - 2} frames fused")
+
+    # per keyframe: the launches agree with what the mapper says it did
+    for k in keyframes:
+        check(k["topk"] == k["topk_epi_rows"] == k["lm_triangulation_passes"]
+              and k["topk"] in (0, 1, 2),
+              f"keyframe {k['kid']}: {k['topk']} top-k launches ({k['topk_epi_rows']} of "
+              f"{EPI_ROWS} rows) for {k['lm_triangulation_passes']} triangulation passes")
+        check(k["matrix"] == k["lm_fuse_searches"],
+              f"keyframe {k['kid']}: {k['matrix']} matrix launches for "
+              f"{k['lm_fuse_searches']} fusion searches")
+        check(k["lm_device_fetches"] == k["lm_triangulation_passes"] + k["lm_fuse_searches"]
+              + k["lm_local_bas"], f"keyframe {k['kid']}: {k['lm_device_fetches']} mapper fetches")
+    n_kf, n_ba = len(keyframes), len(adjustments)
+    check(n_kf >= 5 and n_ba >= 3, f"{n_kf} keyframes and {n_ba} bundle adjustments")
+    check(n_ba == sum(k["lm_local_bas"] for k in keyframes), "adjustments seen and counted differ")
+    total = {k: sum(row[k] for row in keyframes) for k in MAPPER_COUNTS}
+    check(total["lm_points_triangulated"] > 0, "triangulation created no point")
+    check(total["lm_points_fused"] > 0, "fusion fused no point")
+    check(matrix.launches == total["lm_fuse_searches"] > 0, "the matrix kernel was not launched")
+    check(kern.launches_by_rows[EPI_ROWS] == total["lm_triangulation_passes"] > 0,
+          f"no {EPI_ROWS}-row top-k launch")
+    for j, a in enumerate(adjustments):
+        check(a["finite"] and a["chi2_after"] <= a["chi2_before"],
+              f"bundle adjustment {j}: chi2 of its inliers {a['chi2_before']:.1f} -> "
+              f"{a['chi2_after']:.1f}, poses finite={a['finite']}")
+    # the device mirror: uploaded by the first fused frame after a map change
+    # (a keyframe, with what the mapper did to the map), by no other frame
+    pending = True
+    for i, r in enumerate(log):
+        want = int(pending and r["path"] == "fused")
+        check(r["uploads"] == want,
+              f"system frame {i} ({r['path']}): {r['uploads']} uploads of the point store, not {want}")
+        pending = (pending and not want) or bool(r["mapped"])
+    uploads = len(series["store_uploads"])
+    check(uploads <= 1 + n_kf, f"{uploads} uploads of the store for {n_kf} keyframes")
+
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    ate_first = trajectory_ate(system.tracker.trajectory[:N_TRACKER_FRAMES], seq)
+    check(ate["n"] == len(seq.frames) and ate["rmse"] <= ATE_LIMIT_M,
+          f"system ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
+
+    plain = [r["ms"] for r in fused[N_WARMUP:] if not r["mapped"]]
+    with_kf = [r["ms"] for r in log[1:] if r["mapped"]]
+    step = {k: (float(np.median(series[k])), float(np.max(series[k]))) for k in (
+        "lm_total", "lm_track_new_points", "lm_cull_points", "lm_triangulate", "lm_fuse",
+        "lm_local_ba", "lm_cull_keyframes")}
+    m = system.atlas.current
+    print(
+        f"phase 10 system, inline mapping: {len(log)} frames at {W}x{H}, {CFG.n_levels} levels, "
+        f"{CFG.n_features} features through System.track_stereo on {card}: every frame OK, "
+        f"{len(fused)} fused frames (1 tracker fetch and 3 tracker top-k launches each); frames "
+        f"without a keyframe: median {np.median(plain):.3f} ms/frame, p90 "
+        f"{np.percentile(plain, 90):.3f} over {len(plain)}; frames with a keyframe (mapping inline): "
+        f"median {np.median(with_kf):.3f} ms/frame, p90 {np.percentile(with_kf, 90):.3f} over "
+        f"{len(with_kf)}; per keyframe, median (max) ms: "
+        + ", ".join(f"{k[3:]} {v[0]:.2f} ({v[1]:.2f})" for k, v in step.items())
+        + f"; keyframes processed {n_kf} (culled {total['lm_keyframes_culled']}), in the map "
+        f"{m.n_keyframes()}; map points {m.n_mappoints()}, culled {total['lm_points_culled']}, "
+        f"triangulated {total['lm_points_triangulated']}, fused {total['lm_points_fused']}; "
+        f"triangulation passes {total['lm_triangulation_passes']} (one {EPI_ROWS}-row top-k launch "
+        f"each), fusion searches {total['lm_fuse_searches']} (one matrix launch each), bundle "
+        f"adjustments {n_ba}, mapper fetches {total['lm_device_fetches']}; store uploads {uploads}; "
+        f"ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames (limit {ATE_LIMIT_M}); over the first "
+        f"{N_TRACKER_FRAMES} frames {ate_first['rmse']:.4f} m against phase 8's tracking-only "
+        f"{tracker_ate:.4f} m; top-k kernel launches {kern.launches} "
+        f"({dict(kern.launches_by_rows)} by rows), matrix kernel launches {matrix.launches}"
+    )
+    print("phase 10 bundle adjustments: " + json.dumps(adjustments))
+    print("phase 10 keyframes: " + json.dumps(keyframes))
+    return kern.launches, matrix.launches, kern.launches_by_rows[EPI_ROWS], log
+
+
+def phase_system_card_vs_cpu(seq, card_log):
+    """The first frames through System(device="cpu"), as far as the frame
+    after the third keyframe (one bundle adjustment): the same state, path
+    and keyframe frames, map-point count within 2%, poses within 1e-3 (the
+    adjustment sums in another order on the card)."""
+    made = np.cumsum([len(r["mapped"]) for r in card_log])
+    check(made[-1] >= 3 and int(np.argmax(made >= 3)) + 2 <= MAX_SYSTEM_CPU_FRAMES,
+          f"the card's keyframes by frame: {made.tolist()}")
+    third = int(np.argmax(made >= 3))
+    n = third + 2
+    system = make_system(seq, "cpu")
+    worst = {"frames": n, "third_keyframe_at": third, "pose_R_maxdiff": 0.0, "pose_t_maxdiff": 0.0,
+             "mappoints_maxdiff": 0}
+    for i, frame in enumerate(seq.frames[:n]):
+        cpu, card = tracker_step(system.tracker, frame, entry=system), card_log[i]
+        dR = float(np.abs(cpu["R"] - card["R"]).max())
+        dt = float(np.abs(cpu["t"] - card["t"]).max())
+        dmp = abs(cpu["mappoints"] - card["mappoints"])
+        check((cpu["state"], cpu["path"], cpu["keyframes"]) == (card["state"], card["path"],
+                                                                card["keyframes"])
+              and dmp <= 0.02 * card["mappoints"] and dR < 1e-3 and dt < 1e-3,
+              f"system card against CPU, frame {i}: CPU {cpu['state']}, {cpu['path']}, "
+              f"{cpu['keyframes']} keyframes, {cpu['mappoints']} map points; card {card['state']}, "
+              f"{card['path']}, {card['keyframes']}, {card['mappoints']}; pose diff {dR:.2e}, {dt:.2e}")
+        worst["pose_R_maxdiff"] = max(worst["pose_R_maxdiff"], dR)
+        worst["pose_t_maxdiff"] = max(worst["pose_t_maxdiff"], dt)
+        worst["mappoints_maxdiff"] = max(worst["mappoints_maxdiff"], dmp)
+    system.shutdown()
+    worst["bundle_adjustments"] = int(sum(system.stats.series["lm_local_bas"]))
+    worst["keyframes"] = system.atlas.current.n_keyframes()
+    check(worst["bundle_adjustments"] >= 1 and worst["keyframes"] >= 3, f"phase 11 ran {worst}")
+    print(f"phase 11 system card against CPU over {n} frames: {json.dumps(worst)}")
+
+
+def phase_system_async(device, seq, card):
+    """Mapping on its own thread: the tracker's thread and the mapper's both
+    launch work on the card and share the map under its lock."""
+    system = make_system(seq, device, async_mapping=True)
+    inserted, inner = [], system.local_mapper.insert_keyframe
+
+    def insert_keyframe(kf):
+        inserted.append(kf.kid)
+        inner(kf)
+
+    system.local_mapper.insert_keyframe = insert_keyframe
+    times, depth = [], 0
+    for i, f in enumerate(seq.frames[:N_ASYNC_FRAMES]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.track_stereo(f.left, f.right, f.timestamp)
+        times.append((time.perf_counter() - t0) * 1e3)
+        depth = max(depth, system.local_mapper.queue_size())
+        check(system.tracking_state.name == "OK", f"async frame {i}: state {system.tracking_state.name}")
+    t0 = time.perf_counter()
+    while not system.local_mapper.is_idle():
+        check(time.perf_counter() - t0 < 120, "the mapper's queue did not drain in 120 s")
+        time.sleep(0.005)
+    drain = time.perf_counter() - t0
+    system.shutdown()
+    mapper = system.local_mapper
+    check(mapper.is_idle() and mapper.queue_size() == 0 and not mapper._thread.is_alive(),
+          "the mapper is not idle after shutdown")
+    processed = int(sum(system.stats.series["lm_keyframes"]))
+    check(processed == len(inserted) >= 2, f"{processed} keyframes processed, {len(inserted)} inserted")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == N_ASYNC_FRAMES and ate["rmse"] <= ATE_LIMIT_M,
+          f"async ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
+    print(
+        f"phase 12 system, async mapping: {N_ASYNC_FRAMES} frames on {card}: every frame OK, "
+        f"median {np.median(times[2 + N_WARMUP:]):.3f} ms/frame, p90 "
+        f"{np.percentile(times[2 + N_WARMUP:], 90):.3f}; keyframes inserted {len(inserted)}, "
+        f"processed {processed}, deepest queue {depth}, drained {drain * 1e3:.1f} ms after the last "
+        f"frame, mapper idle and stopped; bundle adjustments "
+        f"{int(sum(system.stats.series['lm_local_bas']))}; ATE RMSE {ate['rmse']:.4f} m "
+        f"(limit {ATE_LIMIT_M})"
+    )
+
+
 def main():
+    t_start = time.perf_counter()
+    check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
+    if "--ba-float32" in sys.argv:
+        ba_assembly.SOLVE_DTYPE = np.float32
+        print("local bundle adjustment in float32 (--ba-float32), not the port's float64")
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no GPU")
     device = torch.device("cuda", 0)
@@ -725,24 +1025,34 @@ def main():
 
     # 8. tracker, 9. card against CPU
     t0 = time.perf_counter()
-    seq = generate_sequence(n_frames=N_TRACKER_FRAMES, h=H, w=W)
-    print(f"rendered {N_TRACKER_FRAMES} stereo frames at {W}x{H} in "
+    seq = generate_sequence(n_frames=N_SYSTEM_FRAMES, h=H, w=W)
+    print(f"rendered {N_SYSTEM_FRAMES} stereo frames at {W}x{H} in "
           f"{time.perf_counter() - t0:.1f} s (fx {seq.fx:.1f}, baseline {seq.baseline} m)")
-    tracker_launches, tracker_matrix, tracker_k2, tracker_log = phase_tracker(device, seq, card)
+    tracker_launches, tracker_matrix, tracker_k2, tracker_log, tracker_ate = phase_tracker(
+        device, seq, card)
     phase_tracker_card_vs_cpu(seq, tracker_log)
 
+    # 10. system, 11. card against CPU, 12. mapping on its own thread
+    system_launches, system_matrix, system_epi, system_log = phase_system(
+        device, seq, card, tracker_ate)
+    phase_system_card_vs_cpu(seq, system_log)
+    phase_system_async(device, seq, card)
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
-    top2 = topk_rows[(1024, 1024, 2)]
+    top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
+        matrix_rows[FUSION_SHAPE]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "timer")
     print(json.dumps({"kernels": [
         {
             "name": "hamming_penalty_topk",
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_topk.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            "launches": hot_launches + fused_launches + tracker_launches,
+            "launches": hot_launches + fused_launches + tracker_launches + system_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
+            "launches_system": system_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -756,20 +1066,26 @@ def main():
             "matrix_plus_torch_topk_ms": local_map["matrix_plus_torch_topk_ms"],
             # its second use: match_fisheye's best and second best (K = 2)
             "k2": {"shape": [1024, 1024], "k": 2, "launches_tracker": tracker_k2,
-                   **{key: top2[key] for key in (
-                       "ms", "plain_ms", "bound_ms", "bound_by", "timer", "replaced_ms",
-                       "matrix_plus_torch_topk_ms")}},
+                   **{key: top2[key] for key in timed + (
+                       "replaced_ms", "matrix_plus_torch_topk_ms")}},
+            # its third: the local mapper's triangulation, 10 neighbour keyframes stacked
+            "triangulation": {"shape": [EPI_ROWS, 1024], "k": TOP_K,
+                              "launches_system": system_epi,
+                              **{key: epi[key] for key in timed + (
+                                  "replaced_ms", "matrix_plus_torch_topk_ms")}},
         },
         {
             "name": "hamming_penalty",
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_penalty.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            "launches": hot_matrix + fused_matrix + tracker_matrix,   # 0: no tracker path calls it
-            "on_a_driven_path": False,
+            # the system path alone launches it (map-point fusion)
+            "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix,
+            "on_a_driven_path": system_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
             "launches_tracker": tracker_matrix,
+            "launches_system": system_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -778,8 +1094,10 @@ def main():
             "bound_by": search["bound_by"],
             "timer": search["timer"],
             "library_ms": None,   # no one PyTorch call computes it
+            "fusion": {"shape": list(FUSION_SHAPE), **{key: fusion[key] for key in timed}},
         },
     ]}))
+    print(f"chip_smoke: all 12 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

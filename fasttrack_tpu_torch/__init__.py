@@ -1,11 +1,13 @@
-"""fasttrack_tpu_torch — the fasttrack_tpu tracking front end in PyTorch.
+"""fasttrack_tpu_torch — fasttrack_tpu's visual stereo SLAM system in PyTorch.
 
 A port of the JAX package `fasttrack_tpu` to PyTorch and CUDA on an NVIDIA
-Hopper GPU. Module paths mirror `fasttrack_tpu/` file for file; public
-functions keep the JAX package's signatures and array layouts (x/y as
-separate (N,) tensors, signed descriptors as (N, 256) int8 +-1, packed
-descriptors as (N, 32) uint8), so each module can be held against its JAX
-counterpart by a parity test. This package imports neither jax nor
+Hopper GPU: the tracking front end, the local mapping back end (triangulation,
+fusion, local bundle adjustment) and the stereo `System` facade over them.
+Module paths mirror `fasttrack_tpu/` file for file; public functions keep
+the JAX package's signatures and array layouts (x/y as separate (N,)
+tensors, signed descriptors as (N, 256) int8 +-1, packed descriptors as
+(N, 32) uint8), so each module can be held against its JAX counterpart by a
+parity test. This package imports neither jax nor
 fasttrack_tpu.
 
 Where the JAX package ran a Pallas kernel, the port runs a kernel written

@@ -1,8 +1,9 @@
 """State carried across from the JAX package into the port's tensors.
 
-The tracking slice has no weights: its parameters are the camera, the
+The system has no weights: its parameters are the camera, the
 initial pose, the ORB configuration, the local-map arrays, the
-device-resident point store and the per-frame query block. These helpers
+device-resident point store, the per-frame query block and the bundle
+adjustment window. These helpers
 take them as numpy arrays (what `np.asarray` gives for the JAX package's
 values) and return the port's tensors, so a test or a tool can build every
 input once and hand it to both packages. `device=None` means the card
@@ -21,7 +22,9 @@ import torch
 from fasttrack_tpu_torch.cameras.models import Camera
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.geometry import SE3
+from fasttrack_tpu_torch.nputils import device_fetch
 from fasttrack_tpu_torch.ops.extractor import Keypoints
+from fasttrack_tpu_torch.optim.local_ba import BAProblem, BAResult
 
 
 class MapArrays(NamedTuple):
@@ -148,3 +151,45 @@ def keypoints_from_numpy(x, y, xl, yl, level, angle, score, desc_signed, desc_pa
     ):
         raise ValueError("keypoint arrays disagree in length or shape")
     return kp
+
+
+BA_FIELDS = ("R", "t", "points", "obs_uv", "obs_ur", "inv_sigma2", "mask", "cam_free",
+             "point_free")
+
+
+def ba_problem_from_numpy(arrays: dict, device=None, dtype=np.float32) -> BAProblem:
+    """A bundle-adjustment window from the arrays `ba_assembly` packs: the
+    eight fields of `BAProblem`, the poses as "R" (K, 3, 3) and "t" (K, 3).
+    `dtype` is the floating type of the tensors, and so the precision the
+    solver works in (it computes in the type of the window it is given)."""
+    device = resolve(device)
+
+    def as_t(name, dtype):
+        return _as_tensor(arrays[name], dtype, device)
+
+    prob = BAProblem(
+        poses=SE3(as_t("R", dtype), as_t("t", dtype)),
+        points=as_t("points", dtype),
+        obs_uv=as_t("obs_uv", dtype),
+        obs_ur=as_t("obs_ur", dtype),
+        inv_sigma2=as_t("inv_sigma2", dtype),
+        mask=as_t("mask", np.bool_),
+        cam_free=as_t("cam_free", np.bool_),
+        point_free=as_t("point_free", np.bool_),
+    )
+    L, K = prob.mask.shape
+    if prob.poses.R.shape != (K, 3, 3) or prob.poses.t.shape != (K, 3) \
+            or prob.points.shape != (L, 3) or prob.obs_uv.shape != (L, K, 2) \
+            or prob.obs_ur.shape != (L, K) or prob.inv_sigma2.shape != (L, K) \
+            or prob.cam_free.shape != (K,) or prob.point_free.shape != (L,):
+        raise ValueError("BA window arrays disagree in length or shape")
+    return prob
+
+
+def ba_result_to_numpy(res: BAResult) -> dict:
+    """A solved window on the host, in ONE synchronising fetch: "R", "t",
+    "points", "inlier_mask", "chi2" as NumPy arrays."""
+    R, t, points, inlier, chi2 = device_fetch(
+        res.poses.R, res.poses.t, res.points, res.inlier_mask, res.chi2
+    )
+    return {"R": R, "t": t, "points": points, "inlier_mask": inlier, "chi2": chi2}

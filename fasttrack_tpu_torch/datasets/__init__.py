@@ -1,4 +1,9 @@
-"""Sequence sources. So far the synthetic renderer (datasets/synthetic.py);
-the dataset loaders come with the system slice."""
+"""Sequence sources: the synthetic renderer (datasets/synthetic.py) and the
+EuRoC directory loader (datasets/loaders.py)."""
 
+from fasttrack_tpu_torch.datasets.loaders import (  # noqa: F401
+    EurocSequence,
+    ImuData,
+    load_image,
+)
 from fasttrack_tpu_torch.datasets.synthetic import generate_sequence  # noqa: F401

@@ -17,9 +17,9 @@ are not ported yet: the tracker reads the toggles and raises
 NotImplementedError for one that is off (ROADMAP M5c).
 
 Unlike the reference's process-global statics the toggles live in a small
-config object handed to the Tracker, so several trackers can coexist (the
-module-level default that mirrors the reference's static-before-System
-idiom comes with the system facade, ROADMAP M6).
+config object threaded through the System, so several systems can coexist;
+a module-level default (`set_run_mode` / `get_run_mode`) mirrors the
+reference's static-before-System idiom.
 """
 
 from __future__ import annotations
@@ -61,3 +61,17 @@ class KernelConfig:
             pose_estimation=mask[3] == "1",
             pose_optimization=pose_optimization,
         )
+
+
+# Module-level default, mirroring KernelController::setGPURunMode's
+# set-before-System-construction usage (stereo_inertial_euroc.cc:55-69).
+_default = KernelConfig()
+
+
+def set_run_mode(config: KernelConfig) -> None:
+    global _default
+    _default = config
+
+
+def get_run_mode() -> KernelConfig:
+    return _default

@@ -40,3 +40,21 @@ def device_fetch(*tensors: torch.Tensor):
         out.append(buf[o:o + n].copy().view(dtype).reshape(tuple(t.shape)))
         o += n
     return out
+
+
+def matrix_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix (3, 3) -> unit quaternion (4,) [w, x, y, z], w >= 0
+    (geometry.so3.matrix_to_quat of the JAX package, on the host): the
+    candidate keyed to the largest of (trace, R00, R11, R22)."""
+    R = np.asarray(R, np.float64)
+    (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = R
+    tr = m00 + m11 + m22
+    cands = np.array([
+        [1.0 + tr, m21 - m12, m02 - m20, m10 - m01],
+        [m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20],
+        [m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21],
+        [m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22],
+    ])
+    q = cands[int(np.argmax([tr, m00, m11, m22]))]
+    q = q / np.linalg.norm(q)
+    return -q if q[0] < 0 else q

@@ -11,6 +11,12 @@ the octave band as additive penalties, with the optional level-aware ratio
 test (ORBmatcher.cc:227-309). The two halves are separate functions
 (`hamming_candidates`, `gate_candidates`) so that a caller that searches
 twice with different windows selects once.
+
+`epipolar_match` and `epipolar_match_tri_batch` are the local mapper's
+matchers (SearchForTriangulation): the same kernel, then the epiline gate in
+place of the window. The batch of neighbour keyframes against one keyframe is
+ONE launch with the neighbours' rows stacked, since the columns and their
+penalty are the same for every neighbour.
 """
 
 from __future__ import annotations
@@ -166,6 +172,84 @@ def resolve_duplicates(res: MatchResult, n_keypoints: int) -> torch.Tensor:
     first_winner = torch.full((n_keypoints,), 1 << 30, dtype=torch.int64, device=device)
     first_winner.scatter_reduce_(0, res.idx, tie_key, "amin")
     return is_winner & (qidx == first_winner[res.idx])
+
+
+def _epipolar_gate(cd, ni, u1, v1, u2, v2, F12, sigma2_2):
+    """Best candidate of every row under the point-to-epiline chi2 gate (as a
+    float penalty). cd, ni: (..., N1, K) candidates into image 2; u1, v1:
+    (..., N1); F12: (..., 3, 3). Returns (best_idx, best_dist, ok), (..., N1)."""
+    F = F12[..., None, :, :]                    # broadcast over the N1 rows
+    # epilines as rank-1 arithmetic: l = F12 @ [u1, v1, 1]
+    a = (F[..., 0, 0] * u1 + F[..., 0, 1] * v1 + F[..., 0, 2])[..., None]
+    b = (F[..., 1, 0] * u1 + F[..., 1, 1] * v1 + F[..., 1, 2])[..., None]
+    c = (F[..., 2, 0] * u1 + F[..., 2, 1] * v1 + F[..., 2, 2])[..., None]
+    num = a * u2[ni] + b * v2[ni] + c           # (..., N1, K)
+    dsq = num**2 / torch.clamp(a**2 + b**2, min=1e-12)
+    cdp = cd + torch.clamp(dsq - 3.84 * sigma2_2[ni], min=0.0) * PEN
+    best, j = torch.min(cdp, dim=-1)
+    best_idx = torch.gather(ni, -1, j[..., None])[..., 0]
+    return best_idx, best, best <= TH_LOW
+
+
+def _free_penalty(free: torch.Tensor) -> torch.Tensor:
+    return (1.0 - free.float()) * BIG
+
+
+def epipolar_match(
+    u1, v1, desc1, free1,     # KF1 keypoints (unbound only: free mask)
+    u2, v2, desc2, free2,     # KF2 keypoints
+    F12,                      # (3,3) fundamental with x2^T F12 x1 = 0
+    sigma2_2,                 # (N2,) level variance in image 2
+):
+    """Epipolar-constrained descriptor matching for triangulation
+    (ORBmatcher::SearchForTriangulation, ORBmatcher.cc:1006): best Hamming
+    match under TH_LOW with the point-to-epiline chi2 gate, one row per
+    chosen column. Returns (idx2 (N1,) int64, keep (N1,) bool)."""
+    cd, ni = hamming_penalty_topk(
+        desc1, desc2, _free_penalty(free1), _free_penalty(free2), TOP_K
+    )
+    best_idx, best, ok = _epipolar_gate(cd, ni, u1, v1, u2, v2, F12, sigma2_2)
+    keep = ok & resolve_duplicates(MatchResult(best_idx, best, ok), u2.shape[0])
+    return best_idx, keep
+
+
+def epipolar_match_tri_batch(
+    u1, v1, d1, f1,           # (B, N1), (B, N1, 256), (B, N1) neighbor KFs
+    u2, v2, d2, f2,           # (N2,), (N2, 256), (N2,)   current KF (shared)
+    F12, sigma2_2,            # (B, 3, 3), (N2,)
+    R21, t21,                 # (B, 3, 3), (B, 3)  camera2<-camera1 per pair
+    fx, fy, cx, cy,
+):
+    """Batched SearchForTriangulation + DLT triangulation: ALL covisible
+    neighbor pairs of one new keyframe in one pass. The B * N1 neighbour rows
+    are stacked into ONE Hamming + penalty + top-K launch against the current
+    keyframe (its columns and their penalty are the same for every pair); the
+    epiline gate, the per-pair dedup and the triangulation follow on the
+    device. Returns (idx2 (B,N1) int64, keep (B,N1) bool, X1 (B,N1,3) f32
+    points in each neighbor's frame); rows with keep=False are garbage and
+    must be masked by the host."""
+    from fasttrack_tpu_torch.cameras.stereo import triangulate_two_view
+    from fasttrack_tpu_torch.geometry import SE3
+
+    B, N1 = u1.shape
+    N2 = u2.shape[0]
+    cd, ni = hamming_penalty_topk(
+        d1.reshape(B * N1, d1.shape[-1]), d2,
+        _free_penalty(f1).reshape(-1), _free_penalty(f2), TOP_K,
+    )
+    cd = cd.view(B, N1, -1)
+    ni = ni.view(B, N1, -1)
+    idx2, best, ok = _epipolar_gate(cd, ni, u1, v1, u2, v2, F12, sigma2_2)
+    # one-to-one per pair: pair b's columns become segment b of B * N2
+    offset = (torch.arange(B, device=idx2.device) * N2)[:, None]
+    flat = MatchResult((idx2 + offset).reshape(-1), best.reshape(-1), ok.reshape(-1))
+    keep = ok & resolve_duplicates(flat, B * N2).view(B, N1)
+
+    r1 = torch.stack([(u1 - cx) / fx, (v1 - cy) / fy, torch.ones_like(u1)], dim=-1)
+    u2s, v2s = u2[idx2], v2[idx2]
+    r2 = torch.stack([(u2s - cx) / fx, (v2s - cy) / fy, torch.ones_like(u2s)], dim=-1)
+    X1 = triangulate_two_view(r1, r2, SE3(R21[:, None], t21[:, None]))
+    return idx2, keep, X1
 
 
 def twm_keep(q_angle, kp_angle, res: MatchResult, n_keypoints: int) -> torch.Tensor:

@@ -14,9 +14,10 @@ control flow (Tracking.cc:1851-2392):
 
 An OK-state frame takes the single-fetch fused path (fused_track); the first
 frame after initialization, a failed motion-model search and lost states
-take the stepwise programs above. Without a local mapper the tracker creates
-close stereo points at every keyframe itself: stereo visual odometry over a
-growing map.
+take the stepwise programs above. The tracker creates the close stereo
+points of every keyframe itself and hands the keyframe to the local mapper
+(local_mapping.LocalMapper), which culls, triangulates, fuses and adjusts;
+without one it is stereo visual odometry over a growing map.
 
 The five offload toggles (KernelConfig) are read where the reference
 branches on them. The host sides of the four offload toggles are not ported

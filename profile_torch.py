@@ -17,8 +17,16 @@ sequence, real map, keyframes), the same profile of three fused frames in the
 middle of the run, and the host's share of a fused frame outside the device
 chain (packing the query blocks, dispatch, the wait in the one fetch, the
 bookkeeping after it) as the tracker's own stats record it;
+then, for the local mapper, one keyframe's LocalMapper.process_keyframe in
+the middle of a System run over the same rendered sequence (inline mapping),
+step by step (cull points, triangulate, fuse, local bundle adjustment, cull
+keyframes): kernel launches, device busy time and host time of each step
+under the profiler with a synchronise after each, beside the unprofiled host
+times the mapper's own stats recorded for every keyframe of the run;
 then the device time per call of both Hamming kernels against their plain
-versions at the paths' shapes, of an empty kernel (the floor under any
+versions at the paths' shapes (the mapper's 10240 x 1024 triangulation launch
+and a 3000 x 1024 fusion matrix among them), of the batched 4x4 SVD that
+triangulates the 10240 candidate pairs, of an empty kernel (the floor under any
 kernel), of a plain fill of the matrix kernel's output (the same bytes,
 written only), and, with --earlier-matrix-source, of an earlier version of the
 matrix kernel's source (same C interface) in turns with the current one.
@@ -42,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from fasttrack_tpu_torch import convert, fused_track, parity
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
+from fasttrack_tpu_torch.cameras.stereo import triangulate_two_view
 from fasttrack_tpu_torch.frame_pipeline import (
     FrameData,
     _search_optimize_stage,
@@ -51,7 +60,7 @@ from fasttrack_tpu_torch.frame_pipeline import (
     process_stereo_frame_stacked,
     tracking_hot_path,
 )
-from fasttrack_tpu_torch.geometry import se3_identity
+from fasttrack_tpu_torch.geometry import SE3, se3_identity
 from fasttrack_tpu_torch.ops import cuda_build, hamming_kernel
 from fasttrack_tpu_torch.ops.extractor import extract_orb_pair_stacked
 from fasttrack_tpu_torch.ops.project_match import search_by_projection
@@ -231,6 +240,107 @@ def tracker_frames(dev, card, n_warmup=10):
     }))
 
 
+MAPPER_STEPS = ("_track_new_points", "_cull_recent_mappoints", "_create_new_mappoints",
+                "_search_in_neighbors", "_local_ba", "_cull_keyframes")
+
+
+def mapper_keyframe(dev, card, n_frames=62, profiled_kid=3):
+    """System.track_stereo over the rendered sequence with inline mapping;
+    the keyframe `profiled_kid` (the fourth: three neighbours, a bundle
+    adjustment over four cameras) runs its steps under the profiler."""
+    seq = cs.generate_sequence(n_frames=n_frames, h=cs.H, w=cs.W)
+    system = cs.make_system(seq, dev)
+    mapper = system.local_mapper
+    profiled, on = {}, {"kid": None}
+
+    def watched(name, inner):
+        def step(*args, **kwargs):
+            if on["kid"] != profiled_kid:
+                return inner(*args, **kwargs)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(8):          # the tracer may lose a window's first kernels
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*args, **kwargs)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+            kernels = [k for k in cs.device_kernels(prof) if "spin_kernel" not in k.name]
+            by_name = collections.Counter()
+            for k in kernels:
+                by_name[k.name[:70]] += k.time_range.elapsed_us()
+            profiled[name.lstrip("_")] = {
+                "launches": len(kernels),
+                "device_busy_ms": busy_us(kernels) / 1e3 if kernels else 0.0,
+                "host_ms_profiled_synchronised": host_ms,
+                "top_kernels_ms": [[n, round(us / 1e3, 4)] for n, us in by_name.most_common(4)],
+            }
+            return out
+        return step
+
+    for name in MAPPER_STEPS:
+        setattr(mapper, name, watched(name, getattr(mapper, name)))
+    inner_process = mapper.process_keyframe
+
+    def process_keyframe(kf):
+        on["kid"] = kf.kid
+        inner_process(kf)
+        on["kid"] = None
+
+    mapper.process_keyframe = process_keyframe
+    for f in seq.frames:
+        system.track_stereo(f.left, f.right, f.timestamp)
+        cs.check(system.tracking_state.name == "OK", "the system lost track while profiling")
+    system.shutdown()
+    cs.check("local_ba" in profiled, f"keyframe {profiled_kid} was not reached or not adjusted")
+    series = system.stats.series
+    m = system.atlas.current
+    print(json.dumps({
+        "path": f"local mapper, keyframe {profiled_kid} of {int(sum(series['lm_keyframes']))}, "
+                "by step", "card": card, "profiled": profiled,
+        "host_ms_by_keyframe_unprofiled_but_for_the_profiled_one": {
+            k[3:]: [round(v, 3) for v in series[k]] for k in (
+                "lm_total", "lm_track_new_points", "lm_cull_points", "lm_triangulate", "lm_fuse",
+                "lm_local_ba", "lm_cull_keyframes")},
+        "counts_by_keyframe": {k[3:]: [int(v) for v in series[k]] for k in (
+            "lm_points_culled", "lm_points_triangulated", "lm_points_fused")},
+        "totals": {k[3:]: int(sum(series[k])) for k in (
+            "lm_triangulation_passes", "lm_fuse_searches", "lm_local_bas", "lm_device_fetches")},
+        "keyframes_in_map": m.n_keyframes(), "map_points": m.n_mappoints(),
+    }))
+
+
+def triangulation_svd(dev, card):
+    """The batched 4x4 SVD of triangulate_two_view at the mapper's shape (10
+    neighbour keyframes x 1024 rows): device time, and the host's clock
+    around a synchronised call (torch.linalg.svd checks for errors on the
+    host, which synchronises)."""
+    rng = np.random.default_rng(3)
+    B, n = 10, 1024
+    X1 = np.stack([rng.uniform(-2, 2, (B, n)), rng.uniform(-1.5, 1.5, (B, n)),
+                   rng.uniform(2, 8, (B, n))], -1)
+    t21 = rng.normal(0, 0.2, (B, 3))
+    X2 = X1 + t21[:, None]
+    r1 = torch.from_numpy((X1 / X1[..., 2:]).astype(np.float32)).to(dev)
+    r2 = torch.from_numpy((X2 / X2[..., 2:]).astype(np.float32)).to(dev)
+    T21 = SE3(torch.eye(3, device=dev).expand(B, 1, 3, 3).contiguous(),
+              torch.from_numpy(t21.astype(np.float32)).to(dev)[:, None])
+    call = lambda: triangulate_two_view(r1, r2, T21)
+    err = float((call() - torch.from_numpy(X1.astype(np.float32)).to(dev)).abs().max())
+    cs.check(err < 1e-2, f"triangulation of exact rays is off by {err}")
+    device_ms = cs.device_ms(call, calls=5)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"triangulate_two_view at {(B, n)} (one batched 4x4 SVD of {B * n} systems) ({card}): "
+          + json.dumps({"device_ms": round(device_ms, 4), "host_ms_synchronised_median":
+                        round(float(np.median(walls)), 4), "max_abs_err_m": err}))
+
+
 EMPTY_KERNEL_SOURCE = """
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -293,7 +403,7 @@ def kernel_times(dev, card, earlier_sources):
     matrix = hamming_kernel.hamming_penalty_matrix
     matrix_plain = hamming_kernel.hamming_penalty_matrix_reference
     earlier = {src: earlier_matrix_kernel(Path(src)) for src in earlier_sources}
-    for M, N in ((1024, 1024), (2048, 1024), (4096, 1024)):
+    for M, N in ((1024, 1024), (2048, 1024), (4096, 1024), cs.FUSION_SHAPE):
         a = cs.kernel_inputs(rng, M, N, dev)
         row = {"bound_us": round(cs.bound_ms(M, N, M * N * 4)[0] * 1e3, 3),
                "kernel_us": [us(lambda: matrix(*a))]}
@@ -308,8 +418,8 @@ def kernel_times(dev, card, earlier_sources):
 
     topk = hamming_kernel.hamming_penalty_topk
     topk_plain = hamming_kernel.hamming_penalty_topk_reference
-    for M, N in ((1024, 1024), (2048, 1024), (4096, 1024)):
-        a = cs.kernel_inputs(rng, M, N, dev)
+    for M, N in ((1024, 1024), (2048, 1024), (4096, 1024), (cs.EPI_ROWS, 1024)):
+        a = cs.kernel_inputs(rng, M, N, dev, "validity" if M == cs.EPI_ROWS else "random")
         row = {
             "bound_us": round(cs.bound_ms(M, N, M * cs.TOP_K * 12)[0] * 1e3, 3),
             "kernel_us": [us(lambda: topk(*a, cs.TOP_K)), us(lambda: topk(*a, cs.TOP_K))],
@@ -349,6 +459,8 @@ def main():
     hot_path(dev, card, cam, bf, min_z, frames, args.trace)
     fused_step(dev, card, cam, bf, min_z, frames)
     tracker_frames(dev, card)
+    mapper_keyframe(dev, card)
+    triangulation_svd(dev, card)
     kernel_times(dev, card, args.earlier_matrix_source)
 
 

@@ -1,15 +1,17 @@
 """Package rules of the PyTorch port.
 
-- No module of fasttrack_tpu_torch, and neither of the GPU scripts
-  chip_smoke.py and profile_torch.py, imports jax or fasttrack_tpu (the
-  JAX package's __init__ imports jax and sets a global matmul precision).
+- No module of fasttrack_tpu_torch, neither of the GPU scripts
+  chip_smoke.py and profile_torch.py, and not the port's example script
+  examples/torch_stereo_euroc.py, imports jax or fasttrack_tpu (the JAX
+  package's __init__ imports jax and sets a global matmul precision).
 - Importing the port turns TF32 off for matmul and cuDNN (geometry stays
   in full f32, the counterpart of the JAX package's precision pin).
 - Nothing on the path is random: the BRIEF pattern and its rotated
   sampling offsets equal the JAX package's.
 - The port runs on the card: a constructor given `device=None` goes through
   `device.resolve`, which fails where there is no card; `device="cpu"` is
-  honoured. So does `Tracker`, whose tensors then follow its device.
+  honoured. So do `Tracker`, `LocalMapper`, `System` and the bundle
+  adjustment's window assembly, whose tensors then follow their device.
 - `nputils.device_fetch` returns what it was given, in one copy.
 """
 
@@ -21,7 +23,17 @@ import pytest
 import torch
 
 import fasttrack_tpu_torch
-from fasttrack_tpu_torch import cameras, convert, device, geometry, nputils, tracking
+from fasttrack_tpu_torch import (
+    ba_assembly,
+    cameras,
+    convert,
+    device,
+    geometry,
+    local_mapping,
+    nputils,
+    system,
+    tracking,
+)
 from fasttrack_tpu.ops import descriptor as jax_descriptor
 from fasttrack_tpu.ops.pattern import PATTERN as JAX_PATTERN
 from fasttrack_tpu_torch.ops import descriptor
@@ -31,7 +43,10 @@ from fasttrack_tpu_torch.slam_map import Atlas
 
 PACKAGE = Path(fasttrack_tpu_torch.__file__).parent
 ROOT = PACKAGE.parent
-MODULES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_torch.py"]
+MODULES = sorted(PACKAGE.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_torch.py",
+    ROOT / "examples" / "torch_stereo_euroc.py",
+]
 
 
 def imported_roots(path: Path):
@@ -57,6 +72,9 @@ def test_package_has_the_slice_modules():
         "nputils.py", "stats.py", "kernels.py", "tracking.py", "slam_map/mappoint.py",
         "slam_map/keyframe.py", "slam_map/map.py", "slam_map/atlas.py",
         "datasets/synthetic.py", "evaluation/ate.py",
+        "cameras/stereo.py", "optim/ba_core.py", "optim/local_ba.py", "ba_assembly.py",
+        "ops/host_kernels.py", "local_mapping.py", "settings.py", "datasets/loaders.py",
+        "system.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu"):
@@ -111,6 +129,11 @@ CONSTRUCTORS = {
         np.zeros((7, 4)), np.zeros(4), np.zeros(6), np.zeros(6, bool))),
     "keypoints_from_numpy": (convert.keypoints_from_numpy, _keypoint_args()),
     "tensor_from_numpy": (convert.tensor_from_numpy, (np.arange(3), np.float32)),
+    "ba_problem_from_numpy": (convert.ba_problem_from_numpy, ({
+        "R": np.tile(np.eye(3), (2, 1, 1)), "t": np.zeros((2, 3)), "points": np.zeros((4, 3)),
+        "obs_uv": np.zeros((4, 2, 2)), "obs_ur": np.zeros((4, 2)),
+        "inv_sigma2": np.ones((4, 2)), "mask": np.zeros((4, 2), bool),
+        "cam_free": np.ones(2, bool), "point_free": np.ones(4, bool)},)),
 }
 
 
@@ -183,6 +206,66 @@ def test_tracker_defaults_to_the_card_and_honours_cpu(monkeypatch):
     monkeypatch.setattr(tracking, "resolve", fake_resolve)
     tracking.Tracker(cam, cfg, 28.0, Atlas())
     assert asked == [None]
+
+
+def _asks_the_resolver(monkeypatch, modules, build):
+    """`build()` without a device: raises where there is no card, and asks
+    the resolver of each of `modules` for the card (None), never the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    asked = []
+
+    def fake_resolve(dev=None):
+        asked.append(dev)
+        return torch.device("cpu") if dev is None else torch.device(dev)
+
+    for module in modules:
+        monkeypatch.setattr(module, "resolve", fake_resolve)
+    made = build()
+    assert asked and asked[0] is None
+    return made
+
+
+def test_local_mapper_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    lm = local_mapping.LocalMapper(Atlas(), cam, 28.0, 1.2, 4, device="cpu")
+    assert lm.device == torch.device("cpu")
+    assert lm.camera.params.device.type == "cpu" and lm._bf_dev.device.type == "cpu"
+    assert lm._cam_host.params.dtype == np.float64
+    _asks_the_resolver(monkeypatch, [local_mapping],
+                       lambda: local_mapping.LocalMapper(Atlas(), cam, 28.0, 1.2, 4))
+
+
+def test_system_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    from fasttrack_tpu_torch.settings import Settings
+
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+
+    def settings():
+        return Settings(camera1=cam, bf=28.0, width=320, height=240, n_features=256, n_levels=4)
+
+    s = system.System(settings(), vocabulary=False, device="cpu")
+    assert s.device == s.tracker.device == s.local_mapper.device == torch.device("cpu")
+    made = _asks_the_resolver(monkeypatch, [system],
+                              lambda: system.System(settings(), vocabulary=False))
+    # the system hands the device it resolved to its tracker and its mapper
+    assert made.tracker.device == made.local_mapper.device == made.device
+
+
+def test_window_assembly_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    m = Atlas().current
+    inv_sigma2 = np.ones(4)
+    prob, meta, dropped = ba_assembly.assemble_window(m, [], [], inv_sigma2, 2, 8, device="cpu")
+    assert prob.points.device.type == "cpu" and prob.mask.shape == (8, 2) and dropped == 0
+    # the mapper's windows are solved in float64 (ba_assembly says why)
+    assert prob.points.dtype == prob.poses.R.dtype == prob.obs_uv.dtype == torch.float64
+    assert meta.mp_ids == [] and not prob.mask.any()
+    _asks_the_resolver(monkeypatch, [convert],
+                       lambda: ba_assembly.assemble_window(m, [], [], inv_sigma2, 2, 8))
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    _asks_the_resolver(monkeypatch, [ba_assembly, convert],
+                       lambda: ba_assembly.solve_window(m, [], [], cam, 28.0, inv_sigma2, 2, 8))
 
 
 def test_device_fetch_round_trips_in_argument_order(rng):

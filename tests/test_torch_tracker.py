@@ -17,6 +17,8 @@ device="cpu". Tolerances and why:
   1e-12.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -225,10 +227,24 @@ def step(tracker, left, right, timestamp) -> dict:
     )
 
 
+@contextlib.contextmanager
+def one_torch_thread():
+    """The test workers share the machine's cores, and the port's thousands
+    of small CPU ops per frame thrash when every worker's torch pool spins a
+    thread per core: the runs over a sequence take one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def run_both(seq, frames, **kwargs):
     jt, tt = make_trackers(seq, **kwargs)
     log_j = [step(jt, f.left, f.right, f.timestamp) for f in frames]
-    log_t = [step(tt, f.left, f.right, f.timestamp) for f in frames]
+    with one_torch_thread():
+        log_t = [step(tt, f.left, f.right, f.timestamp) for f in frames]
     return jt, tt, log_j, log_t
 
 
