@@ -54,20 +54,41 @@ Phases, each printing a line; any failure raises and exits non-zero:
    adjustment) again through System(device="cpu"): states, paths, keyframe
    frames, map-point counts and poses;
 12. system, mapping on its own thread (async_mapping=True): every frame OK,
-   the mapper drained and idle after shutdown, the ATE.
+   the mapper drained and idle after shutdown, the ATE;
+13. stereo-inertial system: System(Settings(...), Sensor.IMU_STEREO,
+   vocabulary=False).track_stereo(left, right, t, imu=samples) over a
+   rendered 160-frame sequence (8 s) with its exact 200 Hz IMU stream,
+   inline mapping: keyframes every 0.25 s until the mapper initializes the
+   IMU (>= 6 keyframes over >= 2 s), then the inertial fused frames
+   (twm_step -> tlm_step_vi -> one fetch), the VI pose optimizers on
+   stepwise frames, local inertial bundle adjustments (13 states, 1024
+   points) and the full inertial BA stage 5 s after init; per-frame and
+   per-keyframe checks (every frame OK, 1 fetch and 3 tracker top-k
+   launches per fused inertial frame, store uploads only at map changes),
+   the frame of IMU init, the gyro bias (the stream has none), the share of
+   stepwise frames and fetches per frame (ROADMAP F8), the ATE, ms/frame of
+   fused, stepwise and keyframe frames and ms per inertial window on the
+   host's clock;
+14. the inertial programs, card against CPU, replayed: the first three
+   inertial fused frames' tlm_step_vi and the first local inertial BA
+   window of phase 13, recorded with their inputs, run again on the CPU
+   from the same inputs: bindings equal, poses and velocities within 1e-3,
+   biases within 1e-4, H within 1e-2 of its largest entry; the window
+   also in float64 on both (ROADMAP P5).
 
 Phases 8 to 12 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
 same frames.
 
 The line before the last two is a JSON object of the kernels; the last is
-{"ok": true, "device": {...}}. Each kernel's `launches` is what the four
-paths (phases 4, 6, 8 and 10) launched, counted from 0 at each path's start.
-The matrix kernel is launched by the system path alone (map-point fusion);
-no tracker path calls it since its top-K was fused.
+{"ok": true, "device": {...}}. Each kernel's `launches` is what the five
+paths (phases 4, 6, 8, 10 and 13) launched, counted from 0 at each path's
+start. The matrix kernel is launched by the system paths alone (map-point
+fusion); no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -77,7 +98,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from fasttrack_tpu_torch import ba_assembly, convert, fused_track, local_mapping, parity
+from fasttrack_tpu_torch import (
+    ba_assembly,
+    convert,
+    fused_track,
+    local_mapping,
+    parity,
+    tracking,
+)
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
 from fasttrack_tpu_torch.datasets.synthetic import generate_sequence
 from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
@@ -94,6 +122,7 @@ from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.ops.stereo_match import valid_penalty
 from fasttrack_tpu_torch.ops.topk import top_k
 from fasttrack_tpu_torch.optim import ba_core
+from fasttrack_tpu_torch.optim.inertial import local_inertial_ba
 from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.slam_map import Atlas
 from fasttrack_tpu_torch.system import Sensor, System
@@ -128,6 +157,8 @@ N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
 ATE_LIMIT_M = 0.02
 N_ASYNC_FRAMES = 50             # phase 12: three keyframes, one adjustment
 MAX_SYSTEM_CPU_FRAMES = 48      # phase 11 stops after the frame that follows the third keyframe
+N_INERTIAL_FRAMES = 160         # phase 13: 8 s, IMU init at ~2 s, the 5 s full-BA stage after it
+N_REPLAY_FRAMES = 3             # phase 14: inertial fused frames replayed on the CPU
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -592,12 +623,12 @@ def phase_fused_card_vs_cpu(kept):
     print(f"phase 7 fused step card against CPU: {json.dumps(report)}")
 
 
-def tracker_step(tracker, frame, entry=None) -> dict:
+def tracker_step(tracker, frame, entry=None, imu=None) -> dict:
     """One frame of the rendered sequence through `track_stereo` of `entry`
-    (a System; by default the tracker itself), timed on the host's clock
-    (the call ends after its last fetch), and what the checks read. A frame
-    went stepwise if it recorded `orb_extraction` (the fused path records it
-    only when it falls back)."""
+    (a System; by default the tracker itself), with the IMU samples `imu`
+    if given, timed on the host's clock (the call ends after its last
+    fetch), and what the checks read. A frame went stepwise if it recorded
+    `orb_extraction` (the fused path records it only when it falls back)."""
     series = tracker.stats.series
     counts = {k: len(series[k]) for k in ("orb_extraction", "device_fetches", "store_uploads")}
     kern = hamming_kernel.hamming_penalty_topk
@@ -605,7 +636,10 @@ def tracker_step(tracker, frame, entry=None) -> dict:
     if tracker.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
+    if imu is None:
+        (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
+    else:
+        entry.track_stereo(frame.left, frame.right, frame.timestamp, imu=imu)
     ms = (time.perf_counter() - t0) * 1e3
     last, m = tracker.last_frame, tracker.atlas.current
     return {
@@ -753,7 +787,8 @@ def make_system(seq, device, async_mapping=False) -> System:
 
 MAPPER_COUNTS = ("lm_triangulation_passes", "lm_fuse_searches", "lm_local_bas",
                  "lm_points_culled", "lm_points_triangulated", "lm_points_fused",
-                 "lm_keyframes_culled", "lm_device_fetches")
+                 "lm_keyframes_culled", "lm_device_fetches", "lm_inertial_bas",
+                 "lm_imu_inits", "lm_full_inertial_bas")
 
 
 def watch_mapper(system, keyframes):
@@ -850,7 +885,8 @@ def phase_system(device, seq, card, tracker_ate):
               f"keyframe {k['kid']}: {k['matrix']} matrix launches for "
               f"{k['lm_fuse_searches']} fusion searches")
         check(k["lm_device_fetches"] == k["lm_triangulation_passes"] + k["lm_fuse_searches"]
-              + k["lm_local_bas"], f"keyframe {k['kid']}: {k['lm_device_fetches']} mapper fetches")
+              + k["lm_local_bas"] + k["lm_inertial_bas"],
+              f"keyframe {k['kid']}: {k['lm_device_fetches']} mapper fetches")
     n_kf, n_ba = len(keyframes), len(adjustments)
     check(n_kf >= 5 and n_ba >= 3, f"{n_kf} keyframes and {n_ba} bundle adjustments")
     check(n_ba == sum(k["lm_local_bas"] for k in keyframes), "adjustments seen and counted differ")
@@ -989,6 +1025,250 @@ def phase_system_async(device, seq, card):
     )
 
 
+def make_inertial_system(seq, device) -> System:
+    """The stereo-inertial system at full width, built directly (no YAML):
+    the renderer's body frame is the left camera's (T_b_c1 = I) and its IMU
+    stream is exact at 200 Hz; the noise densities are the settings'
+    defaults (EuRoC's)."""
+    settings = Settings(
+        camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device),
+        bf=seq.fx * seq.baseline, baseline=seq.baseline, width=W, height=H,
+        n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
+        T_b_c1=np.eye(4), imu_frequency=200.0,
+    )
+    return System(settings, Sensor.IMU_STEREO, vocabulary=False, device=device)
+
+
+def imu_between(seq, t0, t1):
+    """The IMU samples in (t0, t1] as (t, acc, gyro), what track_stereo takes."""
+    sel = np.where((seq.imu_t > t0) & (seq.imu_t <= t1))[0]
+    return [(float(seq.imu_t[i]), seq.imu_acc[i], seq.imu_gyro[i]) for i in sel]
+
+
+def record_inertial_programs():
+    """Wraps the tracker's tlm_step_vi and the mapper's local_inertial_ba:
+    the first N_REPLAY_FRAMES calls of the one and the first call of the
+    other are kept with their inputs and outputs for phase 14. Returns the
+    record and a function that puts both back."""
+    rec = {"tlm_step_vi": [], "local_inertial_ba": []}
+    inner_tlm, inner_ba = tracking.tlm_step_vi, local_mapping.local_inertial_ba
+
+    def tlm_step_vi(*args):
+        out = inner_tlm(*args)
+        if len(rec["tlm_step_vi"]) < N_REPLAY_FRAMES:
+            rec["tlm_step_vi"].append((args, out))
+        return out
+
+    def local_ba(*args):
+        out = inner_ba(*args)
+        if not rec["local_inertial_ba"]:
+            rec["local_inertial_ba"].append((args, out))
+        return out
+
+    tracking.tlm_step_vi, local_mapping.local_inertial_ba = tlm_step_vi, local_ba
+
+    def restore():
+        tracking.tlm_step_vi, local_mapping.local_inertial_ba = inner_tlm, inner_ba
+
+    return rec, restore
+
+
+def phase_system_inertial(device, seq, card):
+    """The stereo-inertial system a user calls, inline mapping, on the card:
+    every frame of a rendered sequence with its IMU samples through
+    System.track_stereo."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = make_inertial_system(seq, device)
+    keyframes = []
+    watch_mapper(system, keyframes)
+    rec, restore = record_inertial_programs()
+    try:
+        log, t_prev = [], -1.0
+        for f in seq.frames:
+            n_kf = len(keyframes)
+            r = tracker_step(system.tracker, f, entry=system,
+                             imu=imu_between(seq, t_prev, f.timestamp))
+            r["mapped"] = keyframes[n_kf:]
+            r["imu_initialized"] = bool(system.atlas.current.imu_initialized)
+            log.append(r)
+            t_prev = f.timestamp
+    finally:
+        restore()
+    system.shutdown()
+
+    series = system.stats.series
+    for i, r in enumerate(log):
+        check(r["state"] == "OK", f"inertial frame {i}: state {r['state']}")
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"inertial frame {i}: pose")
+        check(len(r["mapped"]) <= 1, f"inertial frame {i}: {len(r['mapped'])} keyframes")
+        if r["path"] == "fused":
+            mapper_topk = sum(k["topk"] for k in r["mapped"])
+            check(r["imu_initialized"], f"inertial frame {i} fused before IMU init")
+            check(r["fetches"] == 1, f"inertial frame {i}: {r['fetches']} tracker fetches, fused path")
+            check(r["launches"] - mapper_topk == 3 and r["launches_k2"] == 0,
+                  f"inertial frame {i}: {r['launches'] - mapper_topk} top-k launches of the tracker "
+                  "on the fused path, not 3")
+    check(any(r["imu_initialized"] for r in log), "the IMU never initialized")
+    init_frame = next(i for i, r in enumerate(log) if r["imu_initialized"])
+    init_kf = next(k for r in log[init_frame:init_frame + 1] for k in r["mapped"])
+    bg = system.tracker.bias[0]
+    check(np.linalg.norm(bg) < 0.05, f"gyro bias {bg} (the stream has none)")
+    fused = [r for r in log if r["path"] == "fused"]
+    stepwise = [r for r in log if r["path"] == "stepwise"]
+    check(len(fused) >= 20, f"{len(fused)} fused inertial frames")
+    for k in keyframes:
+        check(k["topk"] == k["topk_epi_rows"] == k["lm_triangulation_passes"]
+              and k["matrix"] == k["lm_fuse_searches"]
+              and k["lm_device_fetches"] == k["lm_triangulation_passes"] + k["lm_fuse_searches"]
+              + k["lm_local_bas"] + k["lm_inertial_bas"],
+              f"inertial keyframe {k['kid']}: launches and fetches disagree with the mapper: {k}")
+    total = {k: sum(row[k] for row in keyframes) for k in MAPPER_COUNTS}
+    check(total["lm_imu_inits"] == 1 and total["lm_inertial_bas"] >= 2,
+          f"{total['lm_imu_inits']} IMU inits, {total['lm_inertial_bas']} inertial windows")
+    check(matrix.launches == total["lm_fuse_searches"] > 0, "the matrix kernel was not launched")
+    check(kern.launches_by_rows[EPI_ROWS] == total["lm_triangulation_passes"] > 0,
+          f"no {EPI_ROWS}-row top-k launch")
+    pending = True
+    for i, r in enumerate(log):
+        want = int(pending and r["path"] == "fused")
+        check(r["uploads"] == want,
+              f"inertial frame {i} ({r['path']}): {r['uploads']} uploads of the store, not {want}")
+        pending = (pending and not want) or bool(r["mapped"])
+    uploads = len(series["store_uploads"])
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == len(seq.frames) and ate["rmse"] <= ATE_LIMIT_M,
+          f"inertial ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
+
+    def ms(rows):
+        v = [r["ms"] for r in rows]
+        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
+
+    after = log[init_frame + 1:]
+    times = {
+        "fused inertial frames without a keyframe":
+            ms([r for r in fused[N_WARMUP:] if not r["mapped"]]),
+        "stepwise frames without a keyframe, after IMU init":
+            ms([r for r in after if r["path"] == "stepwise" and not r["mapped"]]),
+        "stepwise frames before IMU init, no keyframe":
+            ms([r for r in log[1:init_frame] if not r["mapped"]]),
+        "frames with a keyframe": ms([r for r in log[1:] if r["mapped"]]),
+    }
+    windows = series["lm_inertial_window"]
+    fetches = sum(r["fetches"] for r in log)
+    m = system.atlas.current
+    print(
+        f"phase 13 stereo-inertial system, inline mapping: {len(log)} frames at {W}x{H} "
+        f"({seq.frames[-1].timestamp:.2f} s, IMU at 200 Hz), {CFG.n_levels} levels, "
+        f"{CFG.n_features} features through System.track_stereo(..., imu=...) on {card}: every "
+        f"frame OK; IMU initialized at frame {init_frame} (keyframe {init_kf['kid']}, "
+        f"{sum(len(r['mapped']) for r in log[:init_frame + 1])} keyframes made by then), gyro bias "
+        f"|bg| {np.linalg.norm(bg):.5f} rad/s; {len(fused)} fused inertial frames (1 fetch and 3 "
+        f"tracker top-k launches each; {int(sum(series['fused_vi_frames'])) - len(fused)} more "
+        "fell back to the stepwise path after their fetch), "
+        f"{len(stepwise)} stepwise ({len(stepwise) / len(log):.3f} of all frames; after init "
+        f"{sum(r['path'] == 'stepwise' for r in after) / max(len(after), 1):.3f}); fetches per frame "
+        f"{fetches / len(log):.3f} (after init {sum(r['fetches'] for r in after) / max(len(after), 1):.3f}); "
+        f"VI pose optimizations on stepwise frames: {int(sum(series['vi_pose_anchor']))} anchored on "
+        f"the keyframe, {int(sum(series['vi_pose_lastframe']))} on the last frame; ms/frame median, "
+        f"p90 (count): " + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; inertial windows {len(windows)} (one per keyframe after init, one at init, and "
+        f"those of the {total['lm_full_inertial_bas']} full-BA stage(s) reached), ms each on the "
+        f"host's clock median {np.median(windows):.3f}, max {np.max(windows):.3f}; keyframes processed "
+        f"{len(keyframes)} (culled {total['lm_keyframes_culled']}), in the map {m.n_keyframes()}, "
+        f"visual local BAs {total['lm_local_bas']}, map points {m.n_mappoints()}; store uploads "
+        f"{uploads}; ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames (limit {ATE_LIMIT_M}); "
+        f"top-k kernel launches {kern.launches} ({dict(kern.launches_by_rows)} by rows), matrix "
+        f"kernel launches {matrix.launches}"
+    )
+    print("phase 13 keyframes: " + json.dumps(keyframes))
+    check(len(rec["tlm_step_vi"]) == N_REPLAY_FRAMES and rec["local_inertial_ba"],
+          "phase 13 recorded too few inertial calls to replay")
+    return kern.launches, matrix.launches, rec
+
+
+def to_device(x, device):
+    """Tensors inside (nested) NamedTuples and tuples, and a Camera's
+    parameters, moved to `device`; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x) and hasattr(x, "params"):
+        return dataclasses.replace(x, params=x.params.to(device))
+    if isinstance(x, tuple):
+        items = [to_device(v, device) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def with_float(x, dtype):
+    """The floating tensors inside (nested) NamedTuples and tuples as `dtype`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        items = [with_float(v, dtype) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def state_diffs(a, b) -> dict:
+    cpu = torch.device("cpu")
+    return {f: float((getattr(a, f).to(cpu).double() - getattr(b, f).to(cpu).double()).abs().max())
+            for f in ("R_wb", "p_w", "v_w", "bg", "ba")}
+
+
+def state_close(d) -> bool:
+    return max(d["R_wb"], d["p_w"], d["v_w"]) < 1e-3 and max(d["bg"], d["ba"]) < 1e-4
+
+
+def phase_inertial_card_vs_cpu(rec):
+    """Phase 13's recorded inertial programs again on the CPU, from the
+    same inputs."""
+    cpu = torch.device("cpu")
+    frames = []
+    for i, (args, card) in enumerate(rec["tlm_step_vi"]):
+        host = fused_track.tlm_step_vi(*to_device(args, cpu))
+        same = {f: torch.equal(getattr(card, f).to(cpu), getattr(host, f))
+                for f in ("keep", "in_frustum", "inliers")}
+        k = host.keep
+        same["idx_where_kept"] = torch.equal(card.idx.to(cpu)[k], host.idx[k])
+        d = state_diffs(card, host)
+        H_rel = float((card.H.to(cpu) - host.H).abs().max() / host.H.abs().max())
+        row = {"frame": i, **same, "matches": int(k.sum()), "n_inliers": int(host.n_inliers),
+               **{f"{f}_maxdiff": v for f, v in d.items()}, "H_rel_maxdiff": H_rel}
+        frames.append(row)
+        check(all(same.values()) and state_close(d) and H_rel < 1e-2,
+              f"tlm_step_vi card against CPU, recorded frame {i}: {row}")
+    (args, card), = rec["local_inertial_ba"]
+    prob = args[0]
+    dtype = prob.points.dtype
+    windows = {}
+    other = torch.float32 if dtype == torch.float64 else torch.float64
+    for name, card_res, a in (
+        (str(dtype).split(".")[-1], card, args),
+        (str(other).split(".")[-1], None, (with_float(prob, other),) + tuple(args[1:])),
+    ):
+        if card_res is None:
+            card_res = local_inertial_ba(*a)
+        host = local_inertial_ba(*to_device(a, cpu))
+        d = state_diffs(card_res.states, host.states)
+        free = prob.point_free.to(cpu)
+        windows[name] = {
+            **{f"{f}_maxdiff": v for f, v in d.items()},
+            "points_maxdiff": float((card_res.points.to(cpu).double()
+                                     - host.points.double()).abs()[free].max()),
+            "inlier_mask_differences": int((card_res.inlier_mask.to(cpu) != host.inlier_mask).sum()),
+            "observations": int(prob.mask.sum()), "free_states": int(prob.state_free.sum()),
+            "free_points": int(free.sum()),
+        }
+        windows[name]["holds"] = state_close(d)
+    solved = str(dtype).split(".")[-1]
+    check(windows[solved]["holds"],
+          f"local_inertial_ba card against CPU in {solved}, the mapper's type: {windows}")
+    print(f"phase 14 inertial programs card against CPU: tlm_step_vi {json.dumps(frames)}; "
+          f"first local inertial BA window (mapper solves in {solved}; the other type replayed "
+          f"for comparison): {json.dumps(windows)}")
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -1038,6 +1318,14 @@ def main():
     phase_system_card_vs_cpu(seq, system_log)
     phase_system_async(device, seq, card)
 
+    # 13. stereo-inertial system, 14. its inertial programs card against CPU
+    t0 = time.perf_counter()
+    seq_i = generate_sequence(n_frames=N_INERTIAL_FRAMES, h=H, w=W)
+    print(f"rendered {N_INERTIAL_FRAMES} stereo frames at {W}x{H} with their IMU stream "
+          f"({len(seq_i.imu_t)} samples) in {time.perf_counter() - t0:.1f} s")
+    inertial_launches, inertial_matrix, inertial_rec = phase_system_inertial(device, seq_i, card)
+    phase_inertial_card_vs_cpu(inertial_rec)
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -1048,11 +1336,13 @@ def main():
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_topk.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            "launches": hot_launches + fused_launches + tracker_launches + system_launches,
+            "launches": hot_launches + fused_launches + tracker_launches + system_launches
+            + inertial_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
             "launches_system": system_launches,
+            "launches_system_inertial": inertial_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -1079,13 +1369,15 @@ def main():
             "route": "cuda",
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_penalty.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
-            # the system path alone launches it (map-point fusion)
-            "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix,
-            "on_a_driven_path": system_matrix > 0,
+            # the system paths alone launch it (map-point fusion)
+            "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix
+            + inertial_matrix,
+            "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
             "launches_tracker": tracker_matrix,
             "launches_system": system_matrix,
+            "launches_system_inertial": inertial_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -1097,7 +1389,9 @@ def main():
             "fusion": {"shape": list(FUSION_SHAPE), **{key: fusion[key] for key in timed}},
         },
     ]}))
-    print(f"chip_smoke: all 12 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(inertial_launches > 0 and inertial_matrix > 0,
+          "a kernel was not launched on the stereo-inertial path")
+    print(f"chip_smoke: all 14 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

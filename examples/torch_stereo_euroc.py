@@ -9,9 +9,13 @@ Usage:
       [--device cuda:0|cpu]
 
 Runs on the CUDA device unless --device says otherwise. The settings must
-describe a rectified pinhole pair. The inertial sensor (--imu) and the host
-sides of the offload toggles (any --mode other than 1111) are not ported
-yet: the script exits with the message of the NotImplementedError.
+describe a rectified pinhole pair. --imu runs the stereo-inertial system on
+the sequence's mav0/imu0/data.csv with the settings' IMU block (the
+samples between consecutive frames go with the later one), and writes
+whether the IMU initialized into ate.json beside the ATE; without that file
+it exits with an error. The host sides of the offload toggles (any --mode
+other than 1111) are not ported yet: the script exits with the message of
+the NotImplementedError.
 """
 
 import argparse
@@ -54,6 +58,8 @@ def main():
             )
         settings = load_settings(args.settings, device=args.device)
         seq = EurocSequence(args.sequence, args.timestamps)
+        if args.imu and seq.imu is None:
+            sys.exit(f"--imu: {args.sequence} has no mav0/imu0/data.csv")
         # vocabulary=False: tracking + local mapping; place recognition is
         # not ported yet (ROADMAP M7)
         system = System(settings, sensor, kernel_config=kcfg,
@@ -62,10 +68,15 @@ def main():
     except NotImplementedError as e:
         sys.exit(str(e))
 
+    t_prev = None
     t0 = time.perf_counter()
     for i in range(len(seq)):
         ts, left, right = seq[i]
-        system.track_stereo(left, right, ts)
+        imu = None
+        if args.imu and t_prev is not None:
+            imu = seq.imu.between(t_prev, ts)
+        system.track_stereo(left, right, ts, imu=imu)
+        t_prev = ts
         if i % 100 == 0:
             print(f"frame {i}/{len(seq)} state={system.tracking_state.name}")
     wall = time.perf_counter() - t0
@@ -81,7 +92,8 @@ def main():
     if args.gt:
         from fasttrack_tpu_torch.evaluation import report_ate
 
-        report_ate(system, args.gt, args.out, with_scale=False)
+        extra = {"imu_initialized": bool(system.atlas.current.imu_initialized)} if args.imu else None
+        report_ate(system, args.gt, args.out, with_scale=False, extra=extra)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""fasttrack_tpu_torch — fasttrack_tpu's visual stereo SLAM system in PyTorch.
+"""fasttrack_tpu_torch — fasttrack_tpu's stereo and stereo-inertial SLAM system
+in PyTorch.
 
 A port of the JAX package `fasttrack_tpu` to PyTorch and CUDA on an NVIDIA
 Hopper GPU: the tracking front end, the local mapping back end (triangulation,
-fusion, local bundle adjustment) and the stereo `System` facade over them.
+fusion, local bundle adjustment, and with an IMU its initialization and the
+inertial bundle adjustments) and the `System` facade over them.
 Module paths mirror `fasttrack_tpu/` file for file; public functions keep
 the JAX package's signatures and array layouts (x/y as separate (N,)
 tensors, signed descriptors as (N, 256) int8 +-1, packed descriptors as

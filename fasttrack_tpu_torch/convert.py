@@ -2,8 +2,9 @@
 
 The system has no weights: its parameters are the camera, the
 initial pose, the ORB configuration, the local-map arrays, the
-device-resident point store, the per-frame query block and the bundle
-adjustment window. These helpers
+device-resident point store, the per-frame query block, the bundle
+adjustment window and the inertial values (IMU calibration and bias, a
+preintegration, a body state, the inertial window). These helpers
 take them as numpy arrays (what `np.asarray` gives for the JAX package's
 values) and return the port's tensors, so a test or a tool can build every
 input once and hand it to both packages. `device=None` means the card
@@ -22,8 +23,16 @@ import torch
 from fasttrack_tpu_torch.cameras.models import Camera
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.geometry import SE3
+from fasttrack_tpu_torch.imu.preintegration import (
+    PRE_PACKED_SIZE,
+    ImuBias,
+    ImuCalib,
+    Preintegrated,
+    unpack_preintegrated,
+)
 from fasttrack_tpu_torch.nputils import device_fetch
 from fasttrack_tpu_torch.ops.extractor import Keypoints
+from fasttrack_tpu_torch.optim.inertial import BodyState, InertialBAProblem, whitening_np
 from fasttrack_tpu_torch.optim.local_ba import BAProblem, BAResult
 
 
@@ -193,3 +202,89 @@ def ba_result_to_numpy(res: BAResult) -> dict:
         res.poses.R, res.poses.t, res.points, res.inlier_mask, res.chi2
     )
     return {"R": R, "t": t, "points": points, "inlier_mask": inlier, "chi2": chi2}
+
+
+# ------------------------------------------------------------------ inertial
+def imu_calib_from_numpy(R_bc, t_bc, noise_gyro, noise_acc, walk_gyro, walk_acc, freq,
+                         device=None) -> ImuCalib:
+    """IMU::Calib from the body <- camera extrinsic and the noise densities."""
+    device = resolve(device)
+    R, t = _as_tensor(R_bc, np.float32, device), _as_tensor(t_bc, np.float32, device)
+    if R.shape != (3, 3) or t.shape != (3,):
+        raise ValueError(f"expected R_bc (3, 3) and t_bc (3,), got {R.shape}, {t.shape}")
+    return ImuCalib(R, t, float(noise_gyro), float(noise_acc), float(walk_gyro),
+                    float(walk_acc), float(freq))
+
+
+def imu_bias_from_numpy(bg, ba, device=None, dtype=np.float32) -> ImuBias:
+    device = resolve(device)
+    return ImuBias(_as_tensor(bg, dtype, device), _as_tensor(ba, dtype, device))
+
+
+PRE_FIELDS = ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "C")
+
+
+def preintegrated_from_numpy(pre, device=None, dtype=np.float32) -> Preintegrated:
+    """Preintegrated from anything with its fields (the JAX package's
+    NamedTuple, a HostPreintegrated), stacked along leading dims or not."""
+    device = resolve(device)
+    out = [_as_tensor(np.asarray(getattr(pre, f)), dtype, device) for f in PRE_FIELDS]
+    lead = out[0].shape
+    zero3 = np.zeros(lead + (3,))
+    avg = [_as_tensor(np.asarray(getattr(pre, f, zero3)), dtype, device) for f in ("avgA", "avgW")]
+    if out[1].shape != lead + (3, 3) or out[9].shape != lead + (15, 15):
+        raise ValueError("preintegration fields disagree in shape")
+    b0 = ImuBias(_as_tensor(pre.b0.bg, dtype, device), _as_tensor(pre.b0.ba, dtype, device))
+    return Preintegrated(*out, b0, *avg)
+
+
+def preintegrated_from_packed(buf, device=None) -> Preintegrated:
+    """Preintegrated from the (298,) float32 buffer of pack_preintegrated."""
+    t = _as_tensor(buf, np.float32, resolve(device))
+    if t.shape != (PRE_PACKED_SIZE,):
+        raise ValueError(f"expected a ({PRE_PACKED_SIZE},) buffer, got {tuple(t.shape)}")
+    return unpack_preintegrated(t)
+
+
+def body_state_from_numpy(R_wb, p_w, v_w, bg, ba, device=None, dtype=np.float32) -> BodyState:
+    """A body state (or a stack of them along leading dims)."""
+    device = resolve(device)
+    s = BodyState(*(_as_tensor(a, dtype, device) for a in (R_wb, p_w, v_w, bg, ba)))
+    lead = s.p_w.shape[:-1]
+    if s.R_wb.shape != lead + (3, 3) or any(x.shape != lead + (3,) for x in s[1:]):
+        raise ValueError("body state arrays disagree in shape")
+    return s
+
+
+def inertial_ba_problem_from_numpy(arrays: dict, device=None, dtype=np.float32
+                                   ) -> InertialBAProblem:
+    """An inertial window: the states as "R_wb" (K, 3, 3), "p_w", "v_w",
+    "bg", "ba" (K, 3), "pre" (anything with the preintegration fields,
+    stacked (K-1, ...)), and the other fields of InertialBAProblem by name.
+    The whitening factors are computed from the stacked covariances in
+    float64 (optim.inertial.whitening_np)."""
+    device = resolve(device)
+
+    def as_t(name, dt):
+        return _as_tensor(arrays[name], dt, device)
+
+    pre = arrays["pre"]
+    prob = InertialBAProblem(
+        states=body_state_from_numpy(*(arrays[k] for k in ("R_wb", "p_w", "v_w", "bg", "ba")),
+                                     device=device, dtype=dtype),
+        state_free=as_t("state_free", np.bool_),
+        pre=preintegrated_from_numpy(pre, device, dtype),
+        pre_valid=as_t("pre_valid", np.bool_),
+        points=as_t("points", dtype), point_free=as_t("point_free", np.bool_),
+        obs_uv=as_t("obs_uv", dtype), obs_ur=as_t("obs_ur", dtype),
+        inv_sigma2=as_t("inv_sigma2", dtype), mask=as_t("mask", np.bool_),
+        whiten=_as_tensor(whitening_np(np.asarray(pre.C, np.float64)), dtype, device),
+    )
+    L, K = prob.mask.shape
+    if prob.states.R_wb.shape != (K, 3, 3) or prob.state_free.shape != (K,) \
+            or prob.pre_valid.shape != (K - 1,) or prob.pre.dR.shape != (K - 1, 3, 3) \
+            or prob.points.shape != (L, 3) or prob.obs_uv.shape != (L, K, 2) \
+            or prob.obs_ur.shape != (L, K) or prob.inv_sigma2.shape != (L, K) \
+            or prob.point_free.shape != (L,):
+        raise ValueError("inertial window arrays disagree in length or shape")
+    return prob

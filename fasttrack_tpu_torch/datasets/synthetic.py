@@ -18,7 +18,8 @@ from typing import NamedTuple
 import numpy as np
 from scipy.ndimage import map_coordinates, zoom
 
-GRAVITY_VALUE = 9.81  # ImuTypes.h:43 (the port's imu package comes with the inertial slice)
+from fasttrack_tpu_torch.imu.preintegration import GRAVITY_VALUE
+
 
 
 def make_texture(rng, size=2048):

@@ -119,11 +119,11 @@ def absolute_trajectory_error(
 
 
 def report_ate(system, gt_path: str, out_dir: str,
-               with_scale: bool = False) -> dict:
+               with_scale: bool = False, extra: dict | None = None) -> dict:
     """Example-script-side ATE release gate (the role of euroc_eval_examples.sh:62's
     evaluate3.py call): evaluate the finished System's frame trajectory
     against `gt_path`, print ONE machine-readable JSON line, and write
-    ate.json into the results directory."""
+    ate.json into the results directory. `extra` entries join the line."""
     import json
     import os
 
@@ -137,6 +137,7 @@ def report_ate(system, gt_path: str, out_dir: str,
         "scale": ate.get("scale", 1.0),
         "n_frames_tracked": len(system.tracker.trajectory),
         "gt": os.path.basename(gt_path),
+        **(extra or {}),
     }
     print("ATE " + json.dumps(line))
     os.makedirs(out_dir, exist_ok=True)

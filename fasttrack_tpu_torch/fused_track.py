@@ -1,9 +1,11 @@
 """Single-sync tracking: the whole OK-state frame on the device with ONE
 device->host fetch.
 
-Port of fasttrack_tpu/fused_track.py (the visual path: `twm_step`,
-`tlm_step`, `pack_fused_for_host`, `unpack_fused`; the inertial variants
-come with the inertial slice). Every input the stages need from the host is
+Port of fasttrack_tpu/fused_track.py: `twm_step`, `tlm_step`,
+`pack_fused_for_host`, `unpack_fused`, and the inertial frame's
+`tlm_step_vi`, `pack_fused_vi_for_host`, `unpack_fused_vi` (with
+`vi_buffer`, the one host->device upload of its inertial operands). Every
+input the stages need from the host is
 derivable from the last frame's state plus the motion prediction, so the
 host packs the query blocks up front (parity.py shows how), runs the chain
 frame -> TWM (match + pose) -> TLM (frustum + match + pose) -> pack without
@@ -30,6 +32,15 @@ from fasttrack_tpu_torch.ops.project_match import (
     hamming_candidates,
     tlm_match,
     twm_keep,
+)
+from fasttrack_tpu_torch.imu.preintegration import PRE_PACKED_SIZE, unpack_preintegrated
+from fasttrack_tpu_torch.optim.inertial import (
+    WHITEN_SIZE,
+    BodyState,
+    cam_to_body,
+    pose_inertial_optimize_lastframe,
+    sqrtm_psd_np,
+    whitening_np,
 )
 from fasttrack_tpu_torch.optim.pose_opt import pose_optimize
 
@@ -122,25 +133,13 @@ class TlmStepOut(NamedTuple):
     pred_level: torch.Tensor  # (P,) int32 predicted octave
 
 
-def tlm_step(
-    kl: Keypoints,
-    u_right: torch.Tensor,
-    config: OrbConfig,
-    bf: torch.Tensor,
-    cam: Camera,
-    twm: TwmStepOut,            # device-resident output of twm_step
-    cand_rows: torch.Tensor,    # (P,) int PointStore rows (invalid -> 0)
-    cand_ok: torch.Tensor,      # (P,) bool
-    store_pos: torch.Tensor,    # device-resident PointStore mirror
-    store_desc: torch.Tensor,
-    store_normal: torch.Tensor,
-    store_mind: torch.Tensor,
-    store_maxd: torch.Tensor,
-) -> TlmStepOut:
-    """TrackLocalMap with the frustum cull on the device against the
-    TWM-optimized pose (Frame::isInFrustum semantics, Tracking.cc:3472),
-    then the taken-masked window match and the final pose optimization over
-    the union of TWM + TLM bindings, with no host involvement."""
+def _tlm_search(kl, config, cam, twm, cand_rows, cand_ok, store_pos, store_desc,
+                store_normal, store_mind, store_maxd):
+    """The local-map search of TrackLocalMap: the frustum cull on the device
+    against the TWM-optimized pose (Frame::isInFrustum semantics,
+    Tracking.cc:3472), the taken-masked window match, and the union of TWM
+    and TLM bindings. Returns (idx, keep, in_frustum, pred_level, Xw_kp,
+    bound)."""
     sf = scale_factors(config, kl.x.device)
     rows = cand_rows.long()
     cand_pos = store_pos[rows]
@@ -182,14 +181,137 @@ def tlm_step(
         torch.clamp(lv - 1, min=0), lv, in_frustum,
         kl.x, kl.y, kl.desc_signed, kl.level, kl.valid, taken,
     )
-
     # union of bindings for the final pose optimization
     Xw_kp, bound = _scatter_to_keypoints(idx, keep, cand_pos, twm.Xw_kp, taken)
+    return idx, keep, in_frustum, lv, Xw_kp, bound
+
+
+def tlm_step(
+    kl: Keypoints,
+    u_right: torch.Tensor,
+    config: OrbConfig,
+    bf: torch.Tensor,
+    cam: Camera,
+    twm: TwmStepOut,            # device-resident output of twm_step
+    cand_rows: torch.Tensor,    # (P,) int PointStore rows (invalid -> 0)
+    cand_ok: torch.Tensor,      # (P,) bool
+    store_pos: torch.Tensor,    # device-resident PointStore mirror
+    store_desc: torch.Tensor,
+    store_normal: torch.Tensor,
+    store_mind: torch.Tensor,
+    store_maxd: torch.Tensor,
+) -> TlmStepOut:
+    """TrackLocalMap with the frustum cull on the device against the
+    TWM-optimized pose (Frame::isInFrustum semantics, Tracking.cc:3472),
+    then the taken-masked window match and the final pose optimization over
+    the union of TWM + TLM bindings, with no host involvement."""
+    idx, keep, in_frustum, lv, Xw_kp, bound = _tlm_search(
+        kl, config, cam, twm, cand_rows, cand_ok, store_pos, store_desc, store_normal,
+        store_mind, store_maxd)
+    sf = scale_factors(config, kl.x.device)
     obs_uv = torch.stack([kl.x, kl.y], dim=-1)
     inv_sigma2 = 1.0 / (sf[kl.level] ** 2)
-    opt = pose_optimize(cam, bf, SE3(R_cw, t_cw), Xw_kp, obs_uv, u_right, inv_sigma2, bound)
+    opt = pose_optimize(cam, bf, SE3(twm.pose_R, twm.pose_t), Xw_kp, obs_uv, u_right,
+                        inv_sigma2, bound)
     return TlmStepOut(
         idx, keep, opt.pose.R, opt.pose.t, opt.inliers, opt.n_inliers, in_frustum, lv,
+    )
+
+
+class TlmStepVIOut(NamedTuple):
+    idx: torch.Tensor
+    keep: torch.Tensor
+    R_wb: torch.Tensor        # optimized body state
+    p_w: torch.Tensor
+    v_w: torch.Tensor
+    bg: torch.Tensor
+    ba: torch.Tensor
+    inliers: torch.Tensor     # (N,) final per-keypoint inlier mask
+    n_inliers: torch.Tensor
+    in_frustum: torch.Tensor
+    H: torch.Tensor           # (15,15) marginal info for the next frame
+
+
+# vi_buffer layout: prev state (21: R_wb 9, p_w, v_w, bg, ba), prior_H (225),
+# preintegration (298), v0 (3) as in the JAX package's 547 floats, then the
+# whitening factors computed on the host in float64 (99) and sqrtm(prior_H)
+# (225).
+VI_BUF_SIZE = 21 + 225 + PRE_PACKED_SIZE + 3 + WHITEN_SIZE + 225
+
+
+def vi_buffer(R1, p1, v1, bg, ba, prior_H, pre_packed, v0, C=None) -> np.ndarray:
+    """The inertial operands of `tlm_step_vi` as ONE (VI_BUF_SIZE,) float32
+    array: the last frame's body state, the ConstraintPoseImu prior on it,
+    the frame-to-frame preintegration (pack_preintegrated) and the predicted
+    velocity, plus the whitening factors of the preintegration covariance
+    `C` (default: the packed one) and the square root of the prior, both
+    computed here in float64."""
+    pre_packed = np.asarray(pre_packed, np.float32)
+    if C is None:
+        C = pre_packed[16 + 45:16 + 45 + 225].reshape(15, 15)
+    head = np.concatenate([
+        np.asarray(R1, np.float64).ravel(), p1, v1, bg, ba,
+        np.asarray(prior_H, np.float64).ravel(),
+    ])
+    return np.concatenate([
+        head.astype(np.float32), pre_packed, np.asarray(v0, np.float32),
+        whitening_np(C).astype(np.float32),
+        sqrtm_psd_np(np.asarray(prior_H, np.float64)).ravel().astype(np.float32),
+    ])
+
+
+def tlm_step_vi(
+    kl: Keypoints,
+    u_right: torch.Tensor,
+    config: OrbConfig,
+    bf: torch.Tensor,
+    cam: Camera,
+    twm: TwmStepOut,
+    cand_rows: torch.Tensor,
+    cand_ok: torch.Tensor,
+    store_pos: torch.Tensor,
+    store_desc: torch.Tensor,
+    store_normal: torch.Tensor,
+    store_mind: torch.Tensor,
+    store_maxd: torch.Tensor,
+    R_bc: torch.Tensor,
+    t_bc: torch.Tensor,
+    vi_buf: torch.Tensor,      # (VI_BUF_SIZE,) vi_buffer: one upload
+) -> TlmStepVIOut:
+    """Inertial TrackLocalMap stage: frustum + taken-masked match against
+    the TWM visual pose (the reference's split: TrackWithMotionModel runs
+    the VISUAL pose optimization, Tracking.cc:2989; the VI optimization
+    happens once in TrackLocalMap, :3080-3106), then
+    PoseInertialOptimizationLastFrame over the union of bindings with the
+    ConstraintPoseImu soft anchor prior."""
+    idx, keep, in_frustum, _, Xw_kp, bound = _tlm_search(
+        kl, config, cam, twm, cand_rows, cand_ok, store_pos, store_desc, store_normal,
+        store_mind, store_maxd)
+
+    # VI motion-only optimization seeded at the TWM visual pose
+    prev = BodyState(
+        vi_buf[0:9].reshape(3, 3), vi_buf[9:12], vi_buf[12:15],
+        vi_buf[15:18], vi_buf[18:21],
+    )
+    prior_H = vi_buf[21:246].reshape(15, 15)
+    o = 246 + PRE_PACKED_SIZE
+    pre = unpack_preintegrated(vi_buf[246:o])
+    v0 = vi_buf[o:o + 3]
+    whiten = vi_buf[o + 3:o + 3 + WHITEN_SIZE]
+    W_prior = vi_buf[o + 3 + WHITEN_SIZE:].reshape(15, 15)
+    R_wb0, p_w0 = cam_to_body(twm.pose_R, twm.pose_t, R_bc, t_bc)
+    s0 = BodyState(R_wb0, p_w0, v0, prev.bg, prev.ba)
+    sf = scale_factors(config, kl.x.device)
+    obs_uv = torch.stack([kl.x, kl.y], dim=-1)
+    inv_sigma2 = 1.0 / (sf[kl.level] ** 2)
+    res = pose_inertial_optimize_lastframe(
+        cam, bf, R_bc, t_bc, prev, prior_H, pre, s0,
+        Xw_kp, obs_uv, u_right, inv_sigma2, bound, whiten=whiten, W_prior=W_prior,
+    )
+    st = res.state
+    return TlmStepVIOut(
+        idx, keep, st.R_wb, st.p_w, st.v_w, st.bg, st.ba,
+        res.inliers, res.n_inliers, in_frustum, res.H,
     )
 
 
@@ -245,3 +367,46 @@ def unpack_fused(buf: np.ndarray, N: int, M: int, P: int):
     masks = buf[o4:o4 + M + 2 * P] > 0
     return (f32, packed, idx[:M], masks[:M], idx[M:], masks[M:M + P],
             masks[M + P:], tail)
+
+
+N_TAIL_VI = 23 + 225  # R_wb (9), p_w, v_w, bg, ba, n_inliers TWM and TLM, H (15x15)
+
+
+def pack_fused_vi_for_host(fd, twm: TwmStepOut, tlm: TlmStepVIOut) -> torch.Tensor:
+    """pack_fused_for_host for the inertial frame: the tail carries the
+    optimized body state and the 15x15 marginal prior for the next frame.
+    `unpack_fused_vi` states the layout."""
+    k = fd.kps
+    f32 = torch.cat([
+        torch.stack([
+            k.x, k.y, k.level.float(), k.angle, fd.u_right, fd.depth, k.valid.float(),
+            twm.inliers.float(), tlm.inliers.float(),
+        ]).reshape(-1),
+        tlm.R_wb.reshape(-1), tlm.p_w, tlm.v_w, tlm.bg, tlm.ba,
+        twm.n_inliers.float().reshape(1), tlm.n_inliers.float().reshape(1),
+        tlm.H.reshape(-1),
+    ])
+    i32 = torch.cat([twm.idx, tlm.idx]).to(torch.int32)
+    u8 = torch.cat([
+        k.desc_packed.reshape(-1),
+        twm.keep.to(torch.uint8), tlm.keep.to(torch.uint8), tlm.in_frustum.to(torch.uint8),
+    ])
+    return torch.cat([f32.view(torch.uint8), i32.view(torch.uint8), u8])
+
+
+def unpack_fused_vi(buf: np.ndarray, N: int, M: int, P: int):
+    """Host-side inverse of pack_fused_vi_for_host: the layout of
+    `unpack_fused` with a (248,) f32 tail. Returns (f32 block (9, N), packed
+    descriptors, idxA, keepA, idxB, keepB, in_frustum, tail (23,) =
+    [R_wb (9), p_w, v_w, bg, ba, n_inlA, n_inlB], H (15, 15))."""
+    o1 = 9 * N * 4
+    o2 = o1 + N_TAIL_VI * 4
+    o3 = o2 + (M + P) * 4
+    o4 = o3 + N * 32
+    f32 = buf[:o1].view(np.float32).reshape(9, N)
+    tail = buf[o1:o2].view(np.float32)
+    idx = buf[o2:o3].view(np.int32).astype(np.int64)
+    packed = buf[o3:o4].reshape(N, 32)
+    masks = buf[o4:o4 + M + 2 * P] > 0
+    return (f32, packed, idx[:M], masks[:M], idx[M:], masks[M:M + P],
+            masks[M + P:], tail[:23], tail[23:].reshape(15, 15))

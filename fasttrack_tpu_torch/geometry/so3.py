@@ -109,3 +109,14 @@ def so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
     )
     K = hat(phi)
     return _eye_like(K) - 0.5 * K + cot_term[..., None, None] * (K @ K)
+
+
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """J_r(phi) = J_l(-phi): exp((phi+dphi)^) ~= exp(phi^) exp(J_r dphi ^).
+    Matches IMU::RightJacobianSO3 (ImuTypes.cc)."""
+    return so3_left_jacobian(-phi)
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian (IMU::InverseRightJacobianSO3)."""
+    return so3_left_jacobian_inv(-phi)

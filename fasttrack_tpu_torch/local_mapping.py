@@ -1,4 +1,4 @@
-"""Local mapping back-end (src/LocalMapping.cc), the visual part.
+"""Local mapping back-end (src/LocalMapping.cc), visual and inertial.
 
 Port of fasttrack_tpu/local_mapping.py. Per inserted keyframe
 (LocalMapping::Run loop, LocalMapping.cc:64-282): recent-map-point culling,
@@ -15,9 +15,19 @@ the fusion search (one exact Hamming matrix launch and one fetch per target
 keyframe) and the bundle adjustment (one upload, one fetch; in float64,
 where the JAX package solves in float32: ba_assembly says why). The loops
 over points that instantiate, validate and cull stay on the host, as in the
-JAX package. The inertial back-end (IMU initialization, inertial BA, scale
-refinement) is not ported: `imu_calib` raises NotImplementedError (ROADMAP
-M8), as do `monocular` (M9), `loop_closer` (M7) and `mesh` (M10).
+JAX package.
+
+With an IMU (`imu_calib`, stereo-inertial) the mapper also initializes the
+IMU once the temporal keyframe chain spans 6 keyframes over 2 s
+(imu.init.initialize_imu, host float64), then runs the local inertial BA
+(optim.inertial.local_inertial_ba, one upload and one fetch per window:
+4 fixed anchor keyframes + 8 + 1 states, 1024 points) instead of the visual
+one, the full inertial BA stages 5 s and 15 s after initialization (the
+chain swept in overlapping windows), and the inertial keyframe-cull rules.
+The inertial window is solved in `INERTIAL_SOLVE_DTYPE`. Left out, each
+raising NotImplementedError with its ROADMAP item: `monocular` with its
+scale refinement (M9), `loop_closer` and the converged full inertial BA it
+calls (M7), `mesh` (M10).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import logging
 import queue
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -42,16 +53,55 @@ from fasttrack_tpu_torch.cameras.host import (
 )
 from fasttrack_tpu_torch.cameras.models import PINHOLE, Camera
 from fasttrack_tpu_torch.device import resolve
-from fasttrack_tpu_torch.nputils import device_fetch
+from fasttrack_tpu_torch.imu.init import initialize_imu
+from fasttrack_tpu_torch.nputils import device_fetch, orthonormalize
 from fasttrack_tpu_torch.ops.host_kernels import search_by_projection_exact
 from fasttrack_tpu_torch.ops.project_match import TH_LOW, epipolar_match_tri_batch
 from fasttrack_tpu_torch.optim import local_bundle_adjustment
+from fasttrack_tpu_torch.optim.inertial import local_inertial_ba
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 
 # BA window capacities (fixed shapes: one program for every window).
 BA_MAX_KFS = 16
 BA_MAX_POINTS = 2048
+INERTIAL_BA_POINTS = 1024       # the temporal window's point cap
+# Floating type of the inertial window's solve: float32, as the JAX package
+# (ROADMAP P5 records what a float64 solve does instead).
+INERTIAL_SOLVE_DTYPE = np.float32
+
+
+def _merge_preintegrated(a, b):
+    """Compose host preintegration snapshots: A (prev->mid) then B
+    (mid->next) -> (prev->next). Analytic composition of the deltas and
+    bias Jacobians (the reference re-integrates stored measurements,
+    ImuTypes::MergePrevious; measurements aren't retained here so the
+    first-order composition is used; covariance is summed, a conservative
+    upper bound)."""
+    def hat(v):
+        return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+
+    dR = a.dR @ b.dR
+    dV = a.dV + a.dR @ b.dV
+    dP = a.dP + a.dV * b.dT + a.dR @ b.dP
+    JRg = b.dR.T @ a.JRg + b.JRg
+    JVg = a.JVg - a.dR @ hat(b.dV) @ a.JRg + a.dR @ b.JVg
+    JVa = a.JVa + a.dR @ b.JVa
+    JPg = a.JPg + a.JVg * b.dT - a.dR @ hat(b.dP) @ a.JRg + a.dR @ b.JPg
+    JPa = a.JPa + a.JVa * b.dT + a.dR @ b.JPa
+    return types.SimpleNamespace(
+        dT=a.dT + b.dT, dR=dR, dV=dV, dP=dP,
+        JRg=JRg, JVg=JVg, JVa=JVa, JPg=JPg, JPa=JPa,
+        C=a.C + b.C, b0=a.b0,
+    )
+
+
+def _body_from_cam_np(R_cw, t_cw, R_bc, t_bc):
+    """Host body pose from camera pose (X_b = R_bc X_c + t_bc convention):
+    R_wb = R_wc R_bc^T, p_w = -R_wc t_cw - R_wb t_bc."""
+    R_wc = R_cw.T
+    R_wb = R_wc @ R_bc.T
+    return R_wb, -R_wc @ t_cw - R_wb @ t_bc
 
 
 class LocalMapper:
@@ -61,8 +111,6 @@ class LocalMapper:
                  imu_calib=None, tracker=None, monocular: bool = False,
                  mesh=None, stats: Stats | None = None,
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
-        if imu_calib is not None:
-            raise NotImplementedError("the inertial back-end is not ported yet (ROADMAP M8)")
         if monocular:
             raise NotImplementedError("monocular mapping is not ported yet (ROADMAP M9)")
         if loop_closer is not None:
@@ -81,7 +129,13 @@ class LocalMapper:
         self.n_levels = n_levels
         self.inv_sigma2 = 1.0 / (scale_factor ** (2 * np.arange(n_levels)))
         self.loop_closer = None
-        self.imu_calib = None
+        self.imu_calib = imu_calib          # enables the inertial back-end
+        self.imu_init_kfs = 6               # KFs needed before InitializeIMU
+        self.imu_init_time = None           # timestamp of InitializeIMU
+        if imu_calib is not None:
+            self._R_bc, self._t_bc = imu_calib.extrinsic_np()       # host, float64
+            self._Rbc_dev = imu_calib.R_bc.to(self.device)
+            self._tbc_dev = imu_calib.t_bc.to(self.device)
         self.tracker = tracker
         self.monocular = False
         self.stats = stats or Stats()
@@ -146,9 +200,26 @@ class LocalMapper:
         self._timed("lm_cull_points", self._cull_recent_mappoints, kf)
         self._timed("lm_triangulate", self._create_new_mappoints, kf)
         self._timed("lm_fuse", self._search_in_neighbors, kf)
+        inertial = self.imu_calib is not None
         if m.n_keyframes() > 2:
-            self._timed("lm_local_ba", self._local_ba, kf)
+            if inertial and m.imu_initialized:
+                self._timed("lm_local_inertial_ba", self._local_inertial_ba, kf)
+            else:
+                self._timed("lm_local_ba", self._local_ba, kf)
             self._timed("lm_cull_keyframes", self._cull_keyframes, kf)
+        if inertial and not m.imu_initialized:
+            self._timed("lm_imu_init", self._try_initialize_imu, kf)
+        elif inertial and self.imu_init_time is not None:
+            # VIBA staging (LocalMapping.cc:181-242): full-map inertial BA
+            # ~5 s and ~15 s after initialization refines gravity and bias
+            # once more motion has accumulated.
+            dt = kf.timestamp - self.imu_init_time
+            if not m.iniertial_ba1 and dt > 5.0:
+                self._timed("lm_full_inertial_ba", self._full_inertial_ba, kf)
+                m.iniertial_ba1 = True
+            elif m.iniertial_ba1 and not m.iniertial_ba2 and dt > 15.0:
+                self._timed("lm_full_inertial_ba", self._full_inertial_ba, kf)
+                m.iniertial_ba2 = True
         self.stats.record_count("lm_keyframes", 1)
         self.stats.record("lm_total", (time.perf_counter() - t0) * 1e3)
 
@@ -463,14 +534,301 @@ class LocalMapper:
         self.stats.record_count("lm_device_fetches", 1)
         self.stats.record_count("lm_local_bas", 1)
 
+    # ------------------------------------------------------- inertial backend
+    def _temporal_chain(self, kf: KeyFrame, max_len: int = 64):
+        """Walk prev_kf_id links back from ``kf`` (oldest first)."""
+        m = self.atlas.current
+        chain = [kf]
+        cur = kf
+        while cur.prev_kf_id is not None and len(chain) < max_len:
+            prev = m.keyframes.get(cur.prev_kf_id)
+            if prev is None:
+                break
+            chain.append(prev)
+            cur = prev
+        chain.reverse()
+        return chain
+
+    def _sync_tracker_anchor(self, last: KeyFrame, bias=None):
+        """Hand the tracker its new IMU anchor when `last` is its last
+        keyframe: the body state of `last` and, if given, the biases."""
+        t = self.tracker
+        if t is None or last.kid != t.last_kf_id:
+            return
+        R_wb, p_w = _body_from_cam_np(last.R_cw, last.t_cw, self._R_bc, self._t_bc)
+        t.last_kf_state = (R_wb, p_w, np.asarray(last.velocity))
+        if bias is not None:
+            t.bias = (np.asarray(bias[0]), np.asarray(bias[1]))
+        return t
+
+    def _try_initialize_imu(self, kf: KeyFrame, min_span_s: float = 2.0):
+        """LocalMapping::InitializeIMU (LocalMapping.cc:1173): once enough
+        keyframes with preintegration exist, estimate gyro bias, gravity
+        and velocities in closed form (imu.init.initialize_imu replaces
+        InertialOptimization, Optimizer.cc:3042), align the map gravity to
+        -z via ApplyScaledRotation, and hand the state back to the
+        tracker."""
+        m = self.atlas.current
+        chain = self._temporal_chain(kf)
+        chain = [k for k in chain if k.kid == chain[0].kid or k.preintegrated is not None]
+        if len(chain) < self.imu_init_kfs:
+            return
+        if chain[-1].timestamp - chain[0].timestamp < min_span_s:
+            return
+        R_wb, p_w, preints = [], [], []
+        for i, k in enumerate(chain):
+            Rb, pb = _body_from_cam_np(k.R_cw, k.t_cw, self._R_bc, self._t_bc)
+            R_wb.append(Rb)
+            p_w.append(pb)
+            if i > 0:
+                preints.append(k.preintegrated)
+        # First init: acc bias pinned to zero (the reference's priorA=1e10
+        # first InitializeIMU call, LocalMapping.cc:181): over a 2 s window
+        # ba is degenerate with the gravity direction.
+        res = initialize_imu(R_wb, p_w, preints, mono_scale=False, estimate_ba=False)
+        if not res.success:
+            return
+        # Align gravity: world' = R_gw * world (stereo: no scale).
+        m.apply_scaled_rotation(res.R_gw, 1.0)
+        for i, k in enumerate(chain):
+            k.velocity = res.R_gw @ res.velocities[i]
+            k.imu_bias = (res.bg.copy(), res.ba.copy())
+        m.imu_initialized = True
+        self.imu_init_time = kf.timestamp
+        m.info_changed()
+        self.stats.record_count("lm_imu_inits", 1)
+        t = self._sync_tracker_anchor(chain[-1], (res.bg.copy(), res.ba.copy()))
+        if t is not None:
+            # The running since-KF preintegration is kept: its bias
+            # linearization point is corrected via the stored Jacobians.
+            t.v_w = np.asarray(chain[-1].velocity)
+        # VIBA: polish the freshly initialized window with an inertial BA
+        # (the reference's FullInertialBA after init, LocalMapping.cc:181-242).
+        self._local_inertial_ba(kf)
+
+    def _scale_refinement(self, kf: KeyFrame):
+        raise NotImplementedError(
+            "the monocular scale refinement (LocalMapping::ScaleRefinement) is not "
+            "ported yet (ROADMAP M9)"
+        )
+
+    def _local_inertial_ba(self, kf: KeyFrame, window: int = 8):
+        """Optimizer::LocalInertialBA (Optimizer.cc:2383): temporal window of
+        recent KFs with per-KF (pose, velocity, bias) states, inertial edges
+        between consecutive KFs, visual edges to the window's map points,
+        and FIXED out-of-window anchor KFs observing those points (the
+        reference's lFixedKeyFrames, Optimizer.cc:2446-2475). Without the
+        anchors the window is tied to the rest of the map only through the
+        single gauge KF, and every call can warp the recent map with a
+        window-wide pose/bias shift."""
+        chain = self._temporal_chain(kf, max_len=window + 1)
+        self._inertial_window_ba(chain, window, n_anchors=4)
+
+    def _full_inertial_ba(self, kf: KeyFrame, window: int = 8):
+        """Optimizer::FullInertialBA (Optimizer.cc:392), staged from
+        LocalMapping.cc:181-242: polish the WHOLE temporal chain after IMU
+        initialization as overlapping fixed-shape inertial windows swept
+        along the chain (each window anchors on the previous window's last
+        optimized state), like the visual global BA's block sweeps."""
+        chain = self._temporal_chain(kf, max_len=100000)
+        self.stats.record_count("lm_full_inertial_bas", 1)
+        if len(chain) <= window + 1:
+            self._inertial_window_ba(chain, window)
+            return
+        step = max(window - 1, 1)
+        for start in range(0, len(chain) - 2, step):
+            seg = chain[start:start + window + 1]
+            if len(seg) >= 3:
+                self._inertial_window_ba(seg, window)
+
+    def full_inertial_ba_converged(self, kf: KeyFrame, *args, **kwargs) -> int:
+        raise NotImplementedError(
+            "the converged full inertial BA of the post-loop global BA is not ported "
+            "yet (ROADMAP M7)"
+        )
+
+    def _inertial_window_ba(self, chain, window: int = 8, n_anchors: int = 0):
+        """One inertial window: `chain`'s last window + 1 keyframes (the
+        oldest fixed as the gauge), front-padded to n_anchors + window + 1
+        states so every window has one shape; the padding's first slots
+        hold up to `n_anchors` fixed out-of-window keyframes with visual
+        observations only. One upload, one solve, one fetch; the free
+        states and the points are written back. Records its host time as
+        `lm_inertial_window` (ms)."""
+        t_start = time.perf_counter()
+        m = self.atlas.current
+        # need contiguous preintegration between all consecutive pairs
+        usable = [chain[0]]
+        for k in chain[1:]:
+            if k.preintegrated is None:
+                usable = [k]
+            else:
+                usable.append(k)
+        chain = usable
+        if len(chain) < 3:
+            return
+        K = n_anchors + window + 1
+        chain = chain[-(window + 1):]
+        n_real = len(chain)
+        pad = K - n_real
+        R_bc, t_bc = self._R_bc, self._t_bc
+
+        R_wb = np.tile(np.eye(3), (K, 1, 1))
+        p_w = np.zeros((K, 3))
+        v_w = np.zeros((K, 3))
+        bg = np.zeros((K, 3))
+        ba = np.zeros((K, 3))
+        for i, k in enumerate(chain):
+            R_wb[pad + i], p_w[pad + i] = _body_from_cam_np(k.R_cw, k.t_cw, R_bc, t_bc)
+            v_w[pad + i] = k.velocity if k.velocity is not None else 0.0
+            if k.imu_bias is not None:
+                bg[pad + i], ba[pad + i] = k.imu_bias
+        # padding + oldest real KF fixed (gauge); all others free
+        state_free = np.ones(K, bool)
+        state_free[:pad + 1] = False
+
+        # the K-1 preintegrations between consecutive states, the padding's
+        # as identities with a tiny covariance (their edges are masked out)
+        pres = [chain[i + 1].preintegrated for i in range(n_real - 1)]
+        z3, z33 = np.zeros(3), np.zeros((3, 3))
+        pad_fields = dict(dT=0.0, dR=np.eye(3), dV=z3, dP=z3, JRg=z33, JVg=z33, JVa=z33,
+                          JPg=z33, JPa=z33, C=np.eye(15) * 1e-6)
+        pre = types.SimpleNamespace(**{
+            f: np.stack([np.asarray(d, np.float64) for d in [v] * pad
+                         + [getattr(p, f) for p in pres]])
+            for f, v in pad_fields.items()
+        })
+        pre.b0 = types.SimpleNamespace(
+            bg=np.stack([z3] * pad + [np.asarray(p.b0.bg, np.float64) for p in pres]),
+            ba=np.stack([z3] * pad + [np.asarray(p.b0.ba, np.float64) for p in pres]),
+        )
+        pre_valid = np.zeros(K - 1, bool)
+        pre_valid[pad:] = True
+
+        # Visual observations over the window (same packing as _local_ba,
+        # smaller point cap: the temporal window is narrower).
+        L = INERTIAL_BA_POINTS
+        kf_index = {k.kid: pad + j for j, k in enumerate(chain)}
+        mp_ids = []
+        seen = set()
+        dropped = 0
+        for k in chain:
+            for mid in k.mp_ids:
+                if mid >= 0 and int(mid) not in seen:
+                    mp = m.mappoints.get(int(mid))
+                    if mp is not None and not mp.bad:
+                        seen.add(int(mid))
+                        if len(mp_ids) < L:
+                            mp_ids.append(int(mid))
+                        else:
+                            dropped += 1
+        if dropped:
+            logging.getLogger(__name__).info(
+                "local_inertial_ba: window overflow, dropped %d points (cap %d)",
+                dropped, L,
+            )
+        if n_anchors > 0:
+            # Fixed frontier (Optimizer.cc:2446-2475 lFixedKeyFrames): the
+            # out-of-window KFs observing the most window points occupy the
+            # first padded slots, visual edges only, state_free False.
+            chain_ids = {k.kid for k in chain}
+            votes: dict[int, int] = {}
+            for mid in mp_ids:
+                for kid in m.mappoints[mid].observations:
+                    if kid not in chain_ids and kid in m.keyframes:
+                        votes[kid] = votes.get(kid, 0) + 1
+            top = sorted(votes, key=lambda k: -votes[k])[:min(n_anchors, pad)]
+            for j, kid in enumerate(top):
+                ak = m.keyframes[kid]
+                R_wb[j], p_w[j] = _body_from_cam_np(ak.R_cw, ak.t_cw, R_bc, t_bc)
+                kf_index[kid] = j
+
+        pts = np.zeros((L, 3))
+        pt_free = np.zeros(L, bool)
+        obs_uv = np.zeros((L, K, 2))
+        obs_ur = np.full((L, K), -1.0)
+        inv_s2 = np.ones((L, K))
+        mask = np.zeros((L, K), bool)
+        for li, mid in enumerate(mp_ids):
+            mp = m.mappoints[mid]
+            pts[li] = mp.position
+            pt_free[li] = True
+            for kid, fi in mp.observations.items():
+                j = kf_index.get(kid)
+                if j is None:
+                    continue
+                kkf = m.keyframes[kid]
+                if fi >= len(kkf.kp_uv) or not kkf.valid[fi]:
+                    continue
+                obs_uv[li, j] = kkf.kp_uv[fi]
+                obs_ur[li, j] = kkf.u_right[fi]
+                inv_s2[li, j] = self.inv_sigma2[kkf.kp_level[fi]]
+                mask[li, j] = True
+
+        # the window is packed as the JAX package packs it (float32) and
+        # solved in INERTIAL_SOLVE_DTYPE
+        f32 = np.float32
+        prob = convert.inertial_ba_problem_from_numpy(dict(
+            R_wb=R_wb.astype(f32), p_w=p_w.astype(f32), v_w=v_w.astype(f32),
+            bg=bg.astype(f32), ba=ba.astype(f32), state_free=state_free, pre=pre,
+            pre_valid=pre_valid, points=pts.astype(f32), point_free=pt_free,
+            obs_uv=obs_uv.astype(f32), obs_ur=obs_ur.astype(f32),
+            inv_sigma2=inv_s2.astype(f32), mask=mask,
+        ), device=self.device, dtype=INERTIAL_SOLVE_DTYPE)
+        res = local_inertial_ba(prob, self.camera, self._bf_dev, self._Rbc_dev, self._tbc_dev)
+        R_new, p_new, v_new, bg_new, ba_new, pts_new = (
+            a.astype(np.float64) for a in device_fetch(*res.states, res.points))
+        self.stats.record_count("lm_device_fetches", 1)
+        self.stats.record_count("lm_inertial_bas", 1)
+
+        R_cb = R_bc.T
+        t_cb = -R_cb @ t_bc
+        for i, k in enumerate(chain):
+            j = pad + i
+            if not state_free[j]:
+                continue
+            if not (np.isfinite(R_new[j]).all() and np.isfinite(p_new[j]).all()):
+                continue
+            Rwb = orthonormalize(R_new[j])
+            R_cw = R_cb @ Rwb.T
+            k.set_pose(R_cw, t_cb - R_cw @ p_new[j])
+            if np.isfinite(v_new[j]).all():
+                k.velocity = v_new[j]
+            k.imu_bias = (bg_new[j], ba_new[j])
+        for li, mid in enumerate(mp_ids):
+            mp = m.mappoints.get(mid)
+            if mp is not None and np.isfinite(pts_new[li]).all():
+                mp.position = pts_new[li]
+        # refresh the tracker's anchor if the window moved its reference KF
+        self._sync_tracker_anchor(chain[-1], chain[-1].imu_bias)
+        m.info_changed()
+        self.stats.record("lm_inertial_window", (time.perf_counter() - t_start) * 1e3)
+
     def _cull_keyframes(self, kf: KeyFrame):
         """KeyFrameCulling (LocalMapping.cc:902): erase local KFs whose map
-        points are >=90% observed by >=3 other KFs at same/finer scale."""
+        points are >=90% observed by >=3 other KFs at same/finer scale.
+
+        Inertial mode (LocalMapping.cc:935-1007): the temporal prev/next
+        chain carries the preintegration constraints, so culling is
+        suppressed until the IMU is initialized, and afterwards a KF is only
+        erased when its removal keeps the chain dense (gap < 3 s); its
+        preintegration is merged into the next KF (ImuTypes::MergePrevious).
+        As in the JAX package, a link to keyframe 0 counts as no link."""
         m = self.atlas.current
+        inertial = self.imu_calib is not None
+        if inertial and not m.imu_initialized:
+            return
         for kid in kf.best_covisible(10):
             other = m.keyframes.get(kid)
             if other is None or other.kid == m.init_kf_id:
                 continue
+            if inertial:
+                prev = m.keyframes.get(other.prev_kf_id) if other.prev_kf_id else None
+                nxt = m.keyframes.get(other.next_kf_id) if other.next_kf_id else None
+                if prev is None or nxt is None:
+                    continue
+                if nxt.timestamp - prev.timestamp > 3.0:
+                    continue
             total = 0
             redundant = 0
             for fi, mid in enumerate(other.mp_ids):
@@ -495,6 +853,16 @@ class LocalMapper:
                 if n_better >= 3:
                     redundant += 1
             if total > 20 and redundant > 0.9 * total:
+                if inertial:
+                    prev = m.keyframes.get(other.prev_kf_id)
+                    nxt = m.keyframes.get(other.next_kf_id)
+                    if prev is not None and nxt is not None:
+                        if other.preintegrated is not None and nxt.preintegrated is not None:
+                            nxt.preintegrated = _merge_preintegrated(
+                                other.preintegrated, nxt.preintegrated
+                            )
+                        prev.next_kf_id = nxt.kid
+                        nxt.prev_kf_id = prev.kid
                 m.erase_keyframe(other.kid)
                 self.stats.record_count("lm_keyframes_culled", 1)
 

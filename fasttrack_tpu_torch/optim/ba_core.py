@@ -47,18 +47,13 @@ def residuals(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):
     return r, behind
 
 
-def jacobians(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):
-    """Per-observation J wrt (camera xi (6), point (3)), in closed form.
-    Returns (L, K, 3, 6) and (L, K, 3, 3).
-
-    The camera update is exp(xi) o T with xi = [rho, phi], so
-    d(Xc)/d(xi) = [I | -hat(Xc)] and d(Xc)/d(X) = R. The projection's
-    derivative mirrors the clamps of `_project_pinhole` (|z| < 1e-9) and of
-    the stereo term (z < 1e-6), which hold the clamped depth constant, as
-    differentiating through them does."""
+def projection_jacobian(cam: Camera, bf, Xc, is_stereo):
+    """(..., 3, 3) d(u, v, ur)/d(Xc) of the pinhole stereo projection, the
+    stereo row zero where `is_stereo` is False. Mirrors the clamps of
+    `_project_pinhole` (|z| < 1e-9) and of the stereo term (z < 1e-6), which
+    hold the clamped depth constant, as differentiating through them does."""
     if cam.kind != PINHOLE:
-        raise NotImplementedError(f"BA jacobians for camera kind {cam.kind!r}")
-    Xc = _camera_points(poses, points)
+        raise NotImplementedError(f"projection Jacobian for camera kind {cam.kind!r}")
     fx, fy = cam.params[0], cam.params[1]
     x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
     z_free = torch.abs(z) >= 1e-9
@@ -68,13 +63,23 @@ def jacobians(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):
     dv_dz = torch.where(z_free, -fy * y * inv_z * inv_z, 0.0)
     zc = torch.clamp(z, min=1e-6)
     dstereo_dz = torch.where(z > 1e-6, bf / (zc * zc), 0.0)
-    st = (obs_ur >= 0).to(z.dtype)
-    # d(u, v, ur)/dXc, the stereo row zero on a mono observation
-    dP = torch.stack([
+    st = is_stereo.to(z.dtype)
+    return torch.stack([
         torch.stack([fx * inv_z, zero, du_dz], dim=-1),
         torch.stack([zero, fy * inv_z, dv_dz], dim=-1),
         torch.stack([st * fx * inv_z, zero, st * (du_dz + dstereo_dz)], dim=-1),
-    ], dim=-2)                                                   # (L, K, 3, 3)
+    ], dim=-2)
+
+
+def jacobians(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):
+    """Per-observation J wrt (camera xi (6), point (3)), in closed form.
+    Returns (L, K, 3, 6) and (L, K, 3, 3).
+
+    The camera update is exp(xi) o T with xi = [rho, phi], so
+    d(Xc)/d(xi) = [I | -hat(Xc)] and d(Xc)/d(X) = R. The projection's
+    derivative is `projection_jacobian`'s."""
+    Xc = _camera_points(poses, points)
+    dP = projection_jacobian(cam, bf, Xc, obs_ur >= 0)          # (L, K, 3, 3)
     eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(dP)
     Jc = -(dP @ torch.cat([eye, -hat(Xc)], dim=-1))              # residual = obs - prediction
     Jp = -(dP @ poses.R[None, :])

@@ -1,8 +1,8 @@
 """System facade (src/System.cc): wires the whole pipeline and exposes the
 public tracking API + trajectory persistence.
 
-Port of fasttrack_tpu/system.py for `Sensor.STEREO` over a rectified
-pinhole pair. Mirrors the reference: the constructor builds
+Port of fasttrack_tpu/system.py for `Sensor.STEREO` and `Sensor.IMU_STEREO`
+over a rectified pinhole pair. Mirrors the reference: the constructor builds
 Atlas/Tracking/LocalMapping, TrackStereo is the entry point, then Shutdown
 and the trajectory savers in TUM / EuRoC / KITTI formats
 (System.cc:590-1285).
@@ -10,9 +10,9 @@ and the trajectory savers in TUM / EuRoC / KITTI formats
 Not ported, each raising NotImplementedError with its ROADMAP item when it
 is asked for, never taking another path quietly: place recognition
 (`vocabulary` other than False: loop closing and relocalization, M7), the
-inertial sensors (M8), the monocular and RGB-D sensors, input resize,
+monocular and RGB-D sensors with and without an IMU, input resize,
 start-up rectification of a distorted pair, fisheye rigs and atlas
-save/load (M9).
+save/load, inertial maps included (M9).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from fasttrack_tpu_torch.convert import imu_calib_from_numpy
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.kernels import KernelConfig, get_run_mode
 from fasttrack_tpu_torch.local_mapping import LocalMapper
@@ -67,11 +68,7 @@ class System:
         vocabulary=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD):
-            raise NotImplementedError(
-                f"the inertial sensor {sensor.name} is not ported yet (ROADMAP M8)"
-            )
-        if sensor is not Sensor.STEREO:
+        if sensor not in (Sensor.STEREO, Sensor.IMU_STEREO):
             raise NotImplementedError(
                 f"the sensor {sensor.name} is not ported yet (ROADMAP M9)"
             )
@@ -122,11 +119,21 @@ class System:
         )
         self.vocabulary = None
         self.loop_closer = None
+        # Inertial calibration (IMU::Calib, ImuTypes.h:46-126) from settings.
         self.imu_calib = None
+        if sensor is Sensor.IMU_STEREO:
+            T_bc = settings.T_b_c1 if settings.T_b_c1 is not None else np.eye(4)
+            T_bc = np.asarray(T_bc, np.float64)
+            self.imu_calib = imu_calib_from_numpy(
+                T_bc[:3, :3], T_bc[:3, 3], settings.imu_noise_gyro, settings.imu_noise_acc,
+                settings.imu_walk_gyro, settings.imu_walk_acc, settings.imu_frequency,
+                device=self.device,
+            )
         self.local_mapper = LocalMapper(
             self.atlas, settings.camera1, settings.bf,
             settings.scale_factor, settings.n_levels,
             run_async=async_mapping,
+            imu_calib=self.imu_calib,
             stats=self.stats,
             device=self.device,
         )
@@ -135,13 +142,14 @@ class System:
             kernel_config=self.kcfg, stats=self.stats,
             local_mapper=self.local_mapper,
             th_depth_factor=settings.th_depth,
+            imu_calib=self.imu_calib,
             device=self.device,
         )
         self.local_mapper.tracker = self.tracker
 
     # ------------------------------------------------------------- tracking
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
-        if self.sensor is not Sensor.STEREO:
+        if self.sensor not in (Sensor.STEREO, Sensor.IMU_STEREO):
             raise RuntimeError("track_stereo called on non-stereo sensor config")
         if imu:
             self.tracker_grab_imu(imu)
@@ -154,9 +162,11 @@ class System:
         raise RuntimeError("track_monocular called on non-mono sensor config")
 
     def tracker_grab_imu(self, imu_samples):
-        """System::GrabImuData (System.cc:333); the port has no inertial
-        sensor configuration yet (ROADMAP M8)."""
-        raise RuntimeError("IMU samples passed to a non-inertial sensor config")
+        """System::GrabImuData (System.cc:333): queue (t, acc, gyro) samples
+        for per-frame preintegration in the tracker."""
+        if self.imu_calib is None:
+            raise RuntimeError("IMU samples passed to a non-inertial sensor config")
+        self.tracker.grab_imu(imu_samples)
 
     @property
     def tracking_state(self) -> TrackingState:

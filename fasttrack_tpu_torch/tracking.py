@@ -1,6 +1,7 @@
 """Tracking front-end: the per-frame state machine (src/Tracking.cc).
 
-Port of fasttrack_tpu/tracking.py for visual pinhole stereo. Host-side
+Port of fasttrack_tpu/tracking.py for pinhole stereo, visual and
+stereo-inertial. Host-side
 orchestration of the device programs, mirroring the reference's Track()
 control flow (Tracking.cc:1851-2392):
 
@@ -19,13 +20,21 @@ points of every keyframe itself and hands the keyframe to the local mapper
 (local_mapping.LocalMapper), which culls, triangulates, fuses and adjusts;
 without one it is stereo visual odometry over a growing map.
 
+With an IMU (`imu_calib`) the tracker preintegrates the queued samples on
+the host every frame (imu.preintegration.HostPreintegrated), predicts the
+frame from the last keyframe's body state once the mapper has initialized
+the IMU, runs the inertial fused frame (twm_step -> tlm_step_vi -> one
+fetch) or the VI pose optimizers on stepwise frames, dead-reckons through
+RECENTLY_LOST, stores the inertial state on every keyframe, and resets a
+map that loses track before its IMU initialized.
+
 The five offload toggles (KernelConfig) are read where the reference
 branches on them. The host sides of the four offload toggles are not ported
 yet: a toggle that is off raises NotImplementedError (ROADMAP M5c);
 pose_optimization=False bypasses pose optimization in TrackLocalMap
-(Tracking.cc:3080-3106, the FastTrack ablation mode). The inertial,
-monocular, RGB-D and fisheye front ends raise NotImplementedError with
-their ROADMAP items.
+(Tracking.cc:3080-3106, the FastTrack ablation mode). The monocular, RGB-D
+and fisheye front ends raise NotImplementedError with their ROADMAP item
+(M9).
 """
 
 from __future__ import annotations
@@ -54,9 +63,20 @@ from fasttrack_tpu_torch.frame_pipeline import (
 )
 from fasttrack_tpu_torch.fused_track import (
     pack_fused_for_host,
+    pack_fused_vi_for_host,
     tlm_step,
+    tlm_step_vi,
     twm_step,
     unpack_fused,
+    unpack_fused_vi,
+    vi_buffer,
+)
+from fasttrack_tpu_torch.imu.init import _so3_exp
+from fasttrack_tpu_torch.imu.preintegration import (
+    GRAVITY_VALUE,
+    PRE_PACKED_SIZE,
+    HostPreintegrated,
+    pack_preintegrated,
 )
 from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.nputils import device_fetch
@@ -69,6 +89,14 @@ from fasttrack_tpu_torch.ops.project_match import (
 )
 from fasttrack_tpu_torch.ops.stereo_match import match_fisheye
 from fasttrack_tpu_torch.optim import pose_optimize
+from fasttrack_tpu_torch.optim.inertial import (
+    WHITEN_SIZE,
+    BodyState,
+    pose_inertial_optimize_lastframe_packed,
+    pose_inertial_optimize_packed,
+    sqrtm_psd_np,
+    whitening_np,
+)
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 
@@ -98,6 +126,10 @@ class TrackedFrame:
     R_cw: np.ndarray = None
     t_cw: np.ndarray = None
     mp_ids: np.ndarray = None
+    # Inertial state (world frame, body = IMU): set while tracking inertially.
+    v_w: np.ndarray = None
+    bg: np.ndarray = None
+    ba: np.ndarray = None
 
     def __post_init__(self):
         if self.mp_ids is None:
@@ -145,13 +177,29 @@ class Tracker:
         stereo_rig=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if imu_calib is not None:
-            raise NotImplementedError("inertial tracking is not ported yet (ROADMAP M8)")
         if monocular:
             raise NotImplementedError("monocular tracking is not ported yet (ROADMAP M9)")
         if stereo_rig is not None or camera.kind != PINHOLE:
             raise NotImplementedError("fisheye (KB8) stereo is not ported yet (ROADMAP M9)")
         self.device = resolve(device)
+        # --- inertial front-end state (Tracking.cc IMU members) ----------
+        self.imu_calib = imu_calib            # imu.preintegration.ImuCalib
+        self.use_imu = imu_calib is not None
+        self.imu_queue: list = []             # (t, acc(3), gyro(3)) pending
+        self.pre_from_kf = None               # HostPreintegrated since last KF
+        self.pre_from_frame = None            # HostPreintegrated since last FRAME
+        self._last_map_change = -1            # map.change_index snapshot
+        self._last_preint_ts = None
+        self.last_imu_time: float | None = None
+        self.bias = (np.zeros(3), np.zeros(3))  # (bg, ba) current estimate
+        self.v_w = np.zeros(3)                # current world velocity (body)
+        self._prior_H = None   # ConstraintPoseImu info of the last frame
+        self.last_kf_state = None             # host (R_wb, p_w, v_w) of the last KF
+        self.last_kf_id = None
+        if self.use_imu:
+            self._R_bc, self._t_bc = imu_calib.extrinsic_np()       # host, float64
+            self._Rbc_dev = imu_calib.R_bc.to(self.device)
+            self._tbc_dev = imu_calib.t_bc.to(self.device)
         self.camera = dataclasses.replace(camera, params=camera.params.to(self.device))
         self._cam_host = host_camera(camera)   # host copy for the query blocks
         self._tlm_cand_ids = None  # local-map candidate ids for fused frames
@@ -263,16 +311,115 @@ class Tracker:
     def track_monocular(self, img, timestamp: float):
         raise NotImplementedError("monocular tracking is not ported yet (ROADMAP M9)")
 
+    # --------------------------------------------------------- inertial utils
     def grab_imu(self, samples):
-        raise NotImplementedError("inertial tracking is not ported yet (ROADMAP M8)")
+        """Queue raw IMU samples (System::GrabImuData semantics). Each sample
+        is (t, acc(3,), gyro(3,))."""
+        for t, acc, gyro in samples:
+            self.imu_queue.append(
+                (float(t), np.asarray(acc, np.float64), np.asarray(gyro, np.float64))
+            )
+
+    def _preintegrate_imu(self, timestamp: float):
+        """Tracking::PreintegrateIMU (Tracking.cc:1681): integrate queued
+        samples up to ``timestamp`` into the running since-last-KF
+        preintegration, and restart the frame-to-frame one.
+
+        The running accumulation lives on the host (NumPy, microseconds for
+        per-frame sample counts): the tracker reads it every frame for the
+        IMU prediction and keyframe storage. The device optimizers get it as
+        ONE packed upload (imu.preintegration.pack_preintegrated)."""
+        if self._last_preint_ts == timestamp:
+            return  # already integrated for this frame (fused-path fallback)
+        self._last_preint_ts = timestamp
+        take = [s for s in self.imu_queue if s[0] <= timestamp]
+        self.imu_queue = [s for s in self.imu_queue if s[0] > timestamp]
+        if self.pre_from_kf is None:
+            self.pre_from_kf = HostPreintegrated(self.bias[0], self.bias[1])
+        # frame-to-frame accumulation restarts every frame (feeds the
+        # LastFrame-anchored VI pose optimization, Optimizer.cc:4875)
+        self.pre_from_frame = HostPreintegrated(self.bias[0], self.bias[1])
+        if not take:
+            return
+        t_prev = self.last_imu_time
+        accs, gyrs, dts = [], [], []
+        for t, acc, gyro in take:
+            dt = (t - t_prev) if t_prev is not None else 1.0 / self.imu_calib.freq
+            t_prev = t
+            if dt <= 0:
+                continue
+            accs.append(acc)
+            gyrs.append(gyro)
+            dts.append(dt)
+        if accs and t_prev < timestamp - 1e-9:
+            # Close the interval exactly at the image timestamp with a
+            # zero-order-hold partial step (Tracking.cc:1731-1772 tstep
+            # split): without it the preintegration span differs from the
+            # visual state spacing, and the gravity term of that mismatch
+            # is a systematic error the VI optimizer dumps into the
+            # accelerometer bias. The hold has no cap on its length, as in
+            # the JAX package (ROADMAP F5): a gap of any length is bridged
+            # with the last sample.
+            accs.append(accs[-1])
+            gyrs.append(gyrs[-1])
+            dts.append(timestamp - t_prev)
+            t_prev = timestamp
+        self.last_imu_time = t_prev
+        if not accs:
+            return
+        self.pre_from_kf.integrate(accs, gyrs, dts, self.imu_calib)
+        self.pre_from_frame.integrate(accs, gyrs, dts, self.imu_calib)
+
+    def _body_from_cam(self, R_cw, t_cw):
+        """T_wb from T_cw (host). With X_b = R_bc X_c + t_bc (Calib.mTbc):
+        R_wb = R_wc R_bc^T, p_w = C_w - R_wb t_bc, C_w = -R_wc t_cw."""
+        R_wc = R_cw.T
+        R_wb = R_wc @ self._R_bc.T
+        return R_wb, -R_wc @ t_cw - R_wb @ self._t_bc
+
+    def _cam_from_body(self, R_wb, p_w):
+        R_cb = self._R_bc.T
+        t_cb = -R_cb @ self._t_bc
+        R_cw = R_cb @ R_wb.T
+        return R_cw, t_cb - R_cw @ p_w
+
+    def _predict_state_imu(self):
+        """Tracking::PredictStateIMU (Tracking.cc:1795) on the host, from the
+        last KF body state through the since-KF preintegration."""
+        R1, p1, v1 = self.last_kf_state
+        pre = self.pre_from_kf
+        bg, ba = self.bias
+        dbg = bg - pre.b0.bg
+        dba = ba - pre.b0.ba
+        dR = pre.dR @ _so3_exp(pre.JRg @ dbg)
+        dV = pre.dV + pre.JVg @ dbg + pre.JVa @ dba
+        dP = pre.dP + pre.JPg @ dbg + pre.JPa @ dba
+        g = np.array([0.0, 0.0, -GRAVITY_VALUE])
+        t = pre.dT
+        R2 = R1 @ dR
+        v2 = v1 + g * t + R1 @ dV
+        p2 = p1 + v1 * t + 0.5 * g * t * t + R1 @ dP
+        return R2, p2, v2
+
+    def _imu_ready(self) -> bool:
+        return (
+            self.use_imu
+            and self.atlas.current.imu_initialized
+            and self.last_kf_state is not None
+            and self.pre_from_kf is not None
+        )
 
     # -------------------------------------------------- fused one-sync path
     def _fused_eligible(self) -> bool:
         """The single-sync frame path (fused_track module) covers the normal
         case: OK state, all device toggles on, local-map candidates cached
-        from the previous frame, the constant-velocity model available.
-        Everything else (init, reloc, ablations) stays stepwise."""
-        return (
+        from the previous frame; visual frames need the constant-velocity
+        model, inertial frames an initialized IMU with the frame-to-frame
+        anchor ready (prior + last-frame velocity) and no map change since
+        the last frame (after one the reference anchors on the last KEYFRAME,
+        which the stepwise optimizer does: ROADMAP F8). Everything else
+        (init, reloc, ablations) stays stepwise."""
+        base = (
             self.state == TrackingState.OK
             and not self.localization_only
             and self._tlm_cand_ids is not None
@@ -282,7 +429,16 @@ class Tracker:
             and self.last_frame is not None
             and self.last_frame.R_cw is not None
             and int((self.last_frame.mp_ids >= 0).sum()) >= 10
-            and self.velocity is not None
+        )
+        if not base:
+            return False
+        if not self.use_imu:
+            return self.velocity is not None
+        return (
+            self._imu_ready()
+            and self._prior_H is not None
+            and self.last_frame.v_w is not None
+            and self.atlas.current.change_index == self._last_map_change
         )
 
     _TLM_CAP = 4096  # fixed candidate capacity (one shape for tlm_step)
@@ -339,11 +495,19 @@ class Tracker:
         m = self.atlas.current
         with m.lock:
             last = self.last_frame
-            if timestamp - last.timestamp < 0:
+            dt = timestamp - last.timestamp
+            if dt < 0 or (self.use_imu and dt > 3.0):
                 return NotImplemented  # timestamp jumps take the stepwise path
 
-            R_pred = self.velocity[0] @ last.R_cw
-            t_pred = self.velocity[0] @ last.t_cw + self.velocity[1]
+            use_vi = self.use_imu
+            if use_vi:
+                # host preintegration (microseconds) + IMU prediction
+                self._preintegrate_imu(timestamp)
+                R_wb_pred, p_w_pred, v_pred = self._predict_state_imu()
+                R_pred, t_pred = self._cam_from_body(R_wb_pred, p_w_pred)
+            else:
+                R_pred = self.velocity[0] @ last.R_cw
+                t_pred = self.velocity[0] @ last.t_cw + self.velocity[1]
 
             # ---- TWM query block (host; all last-frame state)
             has_mp = last.mp_ids >= 0
@@ -381,11 +545,24 @@ class Tracker:
                 fd.kps, fd.u_right, self.cfg, self._bf_dev, self.camera, T0,
                 qb.q7, qb.q_rows, store_dev.pos, store_dev.desc,
             )
-            tlm = tlm_step(
-                fd.kps, fd.u_right, self.cfg, self._bf_dev, self.camera,
-                twm, qb.cand_rows, qb.cand_ok, *store_dev,
-            )
-            buf_d = pack_fused_for_host(fd, twm, tlm)
+            if use_vi:
+                R1, p1 = self._body_from_cam(last.R_cw, last.t_cw)
+                vi_buf = vi_buffer(
+                    R1, p1, last.v_w, self.bias[0], self.bias[1], self._prior_H,
+                    pack_preintegrated(self.pre_from_frame), v_pred, C=self.pre_from_frame.C,
+                )
+                tlm = tlm_step_vi(
+                    fd.kps, fd.u_right, self.cfg, self._bf_dev, self.camera,
+                    twm, qb.cand_rows, qb.cand_ok, *store_dev,
+                    self._Rbc_dev, self._tbc_dev, self._upload(vi_buf, np.float32),
+                )
+                buf_d = pack_fused_vi_for_host(fd, twm, tlm)
+            else:
+                tlm = tlm_step(
+                    fd.kps, fd.u_right, self.cfg, self._bf_dev, self.camera,
+                    twm, qb.cand_rows, qb.cand_ok, *store_dev,
+                )
+                buf_d = pack_fused_for_host(fd, twm, tlm)
             t_sync = time.perf_counter()
             buf = device_fetch(buf_d)
             t_fetched = time.perf_counter()
@@ -394,14 +571,19 @@ class Tracker:
             self.stats.record("sync_ms", (t_fetched - t_sync) * 1e3)
             self.stats.record_count("device_fetches", 1)
             N = int(fd.kps.x.shape[0])
-            (f32, packed, idxA, keepA, idxB, keepB, in_frustum,
-             tail) = unpack_fused(buf, N, len(mids), self._TLM_CAP)
+            if use_vi:
+                self.stats.record_count("fused_vi_frames", 1)
+                (f32, packed, idxA, keepA, idxB, keepB, in_frustum,
+                 tail, H_vi) = unpack_fused_vi(buf, N, len(mids), self._TLM_CAP)
+            else:
+                (f32, packed, idxA, keepA, idxB, keepB, in_frustum,
+                 tail) = unpack_fused(buf, N, len(mids), self._TLM_CAP)
 
             # ---- host bookkeeping
             frame = _frame_from_block(self.frame_id, timestamp, f32, packed)
             inlB_kp = f32[8] > 0.5
-            n_inlA = int(tail[12])
-            n_inlB = int(tail[13])
+            n_inlA = int(tail[21] if use_vi else tail[12])
+            n_inlB = int(tail[22] if use_vi else tail[13])
 
             if n_inlA < 10:
                 # TWM failed: resume the stepwise pipeline with the snapshot
@@ -423,8 +605,20 @@ class Tracker:
             # final pose-opt outlier unbind (Tracking.cc:2996-3038)
             frame.mp_ids[~inlB_kp & (frame.mp_ids >= 0)] = -1
             self.n_inliers = n_inlB
-            frame.R_cw = _orthonormalize(tail[:9].reshape(3, 3).astype(np.float64))
-            frame.t_cw = tail[9:12].astype(np.float64)
+            if use_vi:
+                R_wb = _orthonormalize(tail[:9].reshape(3, 3).astype(np.float64))
+                p_w = tail[9:12].astype(np.float64)
+                frame.R_cw, frame.t_cw = self._cam_from_body(R_wb, p_w)
+                frame.v_w = tail[12:15].astype(np.float64)
+                frame.bg = tail[15:18].astype(np.float64)
+                frame.ba = tail[18:21].astype(np.float64)
+                self.v_w = frame.v_w
+                self.bias = (frame.bg, frame.ba)
+                self._prior_H = H_vi.astype(np.float64)
+                self._last_map_change = m.change_index
+            else:
+                frame.R_cw = _orthonormalize(tail[:9].reshape(3, 3).astype(np.float64))
+                frame.t_cw = tail[9:12].astype(np.float64)
             ok = self.n_inliers >= 20
 
             # MapPoint::IncreaseVisible for frustum hits
@@ -459,13 +653,21 @@ class Tracker:
     def _track_prepared(self, frame: TrackedFrame, t0: float):
         timestamp = frame.timestamp
         # Timestamp-jump handling (Tracking.cc:1885-1912): a backwards jump
-        # resets the active map.
+        # resets the active map; with an IMU a large forward gap starts a
+        # fresh map in the Atlas (the integration across the gap is
+        # meaningless).
         if self.last_frame is not None and self.state not in (
             TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED
         ):
-            if timestamp - self.last_frame.timestamp < 0:
+            dt = timestamp - self.last_frame.timestamp
+            if dt < 0:
                 self.stats.record_count("timestamp_jump_backwards", 1)
                 self._reset_active_map()
+            elif self.use_imu and dt > 3.0:
+                self.stats.record_count("timestamp_jump_forward", 1)
+                self._handle_lost()
+        if self.use_imu:
+            self._preintegrate_imu(timestamp)
 
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
             self._stereo_initialization(frame)
@@ -519,12 +721,37 @@ class Tracker:
         self.state = TrackingState.OK
 
     def _make_keyframe(self, frame: TrackedFrame) -> KeyFrame:
-        return KeyFrame(
+        kf = KeyFrame(
             self.atlas.next_kf_id(), frame.frame_id, frame.timestamp,
             frame.R_cw, frame.t_cw, frame.kp_uv, frame.kp_level, frame.kp_angle,
             frame.desc_packed, frame.desc_signed, frame.u_right, frame.depth,
             frame.valid,
         )
+        if self.use_imu:
+            self._finalize_keyframe_inertial(kf, frame)
+        return kf
+
+    def _finalize_keyframe_inertial(self, kf: KeyFrame, frame: TrackedFrame):
+        """Attach the inertial state + since-last-KF preintegration to a new
+        keyframe and restart the accumulation (Tracking::CreateNewKeyFrame
+        inertial bookkeeping, Tracking.cc:3345)."""
+        prev_id = self.last_kf_id
+        kf.velocity = np.asarray(
+            frame.v_w if frame.v_w is not None else self.v_w, np.float64
+        )
+        kf.imu_bias = (self.bias[0].copy(), self.bias[1].copy())
+        kf.prev_kf_id = prev_id
+        if prev_id is not None and self.pre_from_kf is not None:
+            kf.preintegrated = self.pre_from_kf.copy()
+        if prev_id is not None:
+            prev = self.atlas.current.keyframes.get(prev_id)
+            if prev is not None:
+                prev.next_kf_id = kf.kid
+        self.last_kf_id = kf.kid
+        R_wb, p_w = self._body_from_cam(kf.R_cw, kf.t_cw)
+        self.last_kf_state = (R_wb, p_w, np.asarray(kf.velocity, np.float64))
+        # restart the since-KF accumulation at the current bias estimate
+        self.pre_from_kf = HostPreintegrated(self.bias[0], self.bias[1])
 
     # ------------------------------------------------------------- tracking
     def _track(self, frame: TrackedFrame):
@@ -532,7 +759,7 @@ class Tracker:
         with m.lock:
             ok = False
             if self.state == TrackingState.OK:
-                if self.velocity is not None:
+                if self.velocity is not None or self._imu_ready():
                     t0 = time.perf_counter()
                     ok = self._track_with_motion_model(frame)
                     self.stats.record("twm", (time.perf_counter() - t0) * 1e3)
@@ -541,9 +768,26 @@ class Tracker:
                     ok = self._track_reference_keyframe(frame)
                     self.stats.record("trk", (time.perf_counter() - t0) * 1e3)
             elif self.state == TrackingState.RECENTLY_LOST:
-                ok = self._track_reference_keyframe(frame)
-                if not ok:
-                    ok = self._relocalization(frame)
+                if self._imu_ready():
+                    # Inertial dead-reckoning (Tracking.cc:2038-2069): keep
+                    # publishing the IMU-predicted pose and keep trying to
+                    # re-acquire the map visually.
+                    R_wb, p_w, v_w = self._predict_state_imu()
+                    frame.R_cw, frame.t_cw = self._cam_from_body(R_wb, p_w)
+                    frame.v_w = v_w
+                    ok = self._track_with_motion_model(frame)
+                    if not ok:
+                        ok = self._track_reference_keyframe(frame)
+                    if not ok:
+                        # Pure dead-reckoning frame: the predicted pose
+                        # stands (set above), tracking stays RECENTLY_LOST,
+                        # the trajectory stays continuous.
+                        self.stats.record_count("dead_reckoning_frames", 1)
+                        self.v_w = v_w
+                else:
+                    ok = self._track_reference_keyframe(frame)
+                    if not ok:
+                        ok = self._relocalization(frame)
 
             if ok:
                 t0 = time.perf_counter()
@@ -583,8 +827,10 @@ class Tracker:
                 self.state = TrackingState.LOST
                 self._handle_lost()
             self.velocity = None
+            self._prior_H = None
             self._tlm_cand_ids = None
-            # keep last pose as estimate
+            # keep last pose as estimate (unless IMU dead-reckoning
+            # already produced a prediction for this frame)
             if frame.R_cw is None and self.last_frame.R_cw is not None:
                 frame.R_cw = self.last_frame.R_cw.copy()
                 frame.t_cw = self.last_frame.t_cw.copy()
@@ -592,16 +838,28 @@ class Tracker:
 
     def _reset_active_map(self):
         """Tracking::ResetActiveMap: wipe the current map and reinitialize
-        (used for backwards timestamp jumps)."""
-        self.atlas.current.clear()
+        (used for backwards timestamp jumps and the bad-IMU reset)."""
+        m = self.atlas.current
+        m.clear()
+        m.imu_initialized = False
         self.state = TrackingState.NOT_INITIALIZED
         self.ref_kf_id = None
         self.velocity = None
+        self.last_kf_state = None
+        self.pre_from_kf = None
+        self._prior_H = None
 
     def _handle_lost(self):
         """Tracking.cc:2071-2089: abandon small maps, else start a fresh map
-        in the Atlas (to be merged back by loop closing)."""
+        in the Atlas (to be merged back by loop closing). Bad-IMU guard
+        (Tracking.cc:1862-1867 / LocalMapping.cc:138-146): losing track
+        before the IMU initialized means the visual-inertial state is
+        untrustworthy, so the active map is reset instead of kept."""
         m = self.atlas.current
+        if self.use_imu and not m.imu_initialized:
+            self.stats.record_count("bad_imu_reset", 1)
+            self._reset_active_map()
+            return
         if m.n_keyframes() <= 10:
             m.clear()
         self.atlas.create_new_map()
@@ -626,13 +884,22 @@ class Tracker:
         return pos, desc, ok
 
     def _track_with_motion_model(self, frame: TrackedFrame) -> bool:
-        """Tracking.cc:2911 + the PoseEstimationKernel device search."""
+        """Tracking.cc:2911 + the PoseEstimationKernel device search.
+        With an initialized IMU the prediction comes from PredictStateIMU
+        (Tracking.cc:2924-2933) instead of the constant-velocity model."""
         m = self.atlas.current
         last = self.last_frame
-        if last is None or self.velocity is None:
+        if last is None:
             return False
-        R_pred = self.velocity[0] @ last.R_cw
-        t_pred = self.velocity[0] @ last.t_cw + self.velocity[1]
+        if self._imu_ready():
+            R_wb, p_w, v_w = self._predict_state_imu()
+            R_pred, t_pred = self._cam_from_body(R_wb, p_w)
+            frame.v_w = v_w
+        elif self.velocity is not None:
+            R_pred = self.velocity[0] @ last.R_cw
+            t_pred = self.velocity[0] @ last.t_cw + self.velocity[1]
+        else:
+            return False
 
         has_mp = last.mp_ids >= 0
         if has_mp.sum() < 10:
@@ -733,13 +1000,9 @@ class Tracker:
         live = rows >= 0
         Xw[bound[live]] = m.store.pos[rows[live]]
         ok[bound[live]] = True
-        fd = self._fd_dev
-        if fd is not None and frame.frame_id == self.frame_id:
-            obs_uv = torch.stack([fd.kps.x, fd.kps.y], dim=-1)
-            obs_ur = fd.u_right
-        else:
-            obs_uv = self._upload(frame.kp_uv, np.float32)
-            obs_ur = self._upload(frame.u_right, np.float32)
+        if self._imu_ready():
+            return self._optimize_frame_pose_inertial(frame, R0, t0, Xw, ok, min_inliers)
+        obs_uv, obs_ur = self._frame_observations(frame)
         res = pose_optimize(
             self.camera,
             self._bf_dev,
@@ -763,6 +1026,99 @@ class Tracker:
             return False
         frame.R_cw = _orthonormalize(R_new.astype(np.float64))
         frame.t_cw = t_new.astype(np.float64)
+        return True
+
+    def _frame_observations(self, frame: TrackedFrame):
+        """(obs_uv, obs_ur) of `frame` on the device: the live FrameData's
+        tensors for the current frame, else an upload of the snapshot."""
+        fd = self._fd_dev
+        if fd is not None and frame.frame_id == self.frame_id:
+            return torch.stack([fd.kps.x, fd.kps.y], dim=-1), fd.u_right
+        return self._upload(frame.kp_uv, np.float32), self._upload(frame.u_right, np.float32)
+
+    def _optimize_frame_pose_inertial(self, frame, R0, t0, Xw, ok, min_inliers) -> bool:
+        """Motion-only VI optimization. Anchor selection mirrors the
+        reference (Tracking.cc:3080-3106): when the map changed since the
+        previous frame, anchor on the last KEYFRAME
+        (Optimizer::PoseInertialOptimizationLastKeyFrame, Optimizer.cc:4491,
+        fixed anchor); otherwise anchor on the last FRAME with the
+        frame-to-frame preintegration and the ConstraintPoseImu soft prior
+        carried from that frame's own solve
+        (PoseInertialOptimizationLastFrame, Optimizer.cc:4875). The states,
+        the preintegration and its whitening factors (and the prior with
+        its square root) go up as one buffer."""
+        m_now = self.atlas.current
+        lf = self.last_frame
+        map_updated = m_now.change_index != self._last_map_change
+        self._last_map_change = m_now.change_index
+        use_frame_anchor = (
+            not map_updated
+            and lf is not None and lf.R_cw is not None and lf.v_w is not None
+            and self.pre_from_frame is not None
+        )
+        kf_bg, kf_ba = self.bias
+        if use_frame_anchor:
+            R1, p1 = self._body_from_cam(lf.R_cw, lf.t_cw)
+            v1 = lf.v_w
+            pre_anchor = self.pre_from_frame
+        else:
+            R1, p1, v1 = self.last_kf_state
+            pre_anchor = self.pre_from_kf
+        R_wb0, p_w0 = self._body_from_cam(
+            np.asarray(R0, np.float64), np.asarray(t0, np.float64)
+        )
+        v0 = frame.v_w if frame.v_w is not None else self.v_w
+        lastframe = use_frame_anchor and self._prior_H is not None
+        parts = [np.asarray(R1, np.float64).ravel(), p1, v1, kf_bg, kf_ba,
+                 np.asarray(R_wb0, np.float64).ravel(), p_w0, v0, kf_bg, kf_ba,
+                 pack_preintegrated(pre_anchor), whitening_np(pre_anchor.C)]
+        if lastframe:
+            parts += [self._prior_H.ravel(), sqrtm_psd_np(self._prior_H).ravel()]
+        buf = self._upload(np.concatenate(parts), np.float32)
+
+        def state(o):
+            return BodyState(buf[o:o + 9].reshape(3, 3), buf[o + 9:o + 12],
+                             buf[o + 12:o + 15], buf[o + 15:o + 18], buf[o + 18:o + 21])
+
+        o_pre = 42 + PRE_PACKED_SIZE
+        o_w = o_pre + WHITEN_SIZE
+        obs_uv, obs_ur = self._frame_observations(frame)
+        common = (
+            self._upload(Xw, np.float32), obs_uv, obs_ur,
+            self._upload(self._inv_sigma2[frame.kp_level], np.float32),
+            self._upload(ok, np.bool_),
+        )
+        if lastframe:
+            res = pose_inertial_optimize_lastframe_packed(
+                self.camera, self._bf_dev, self._Rbc_dev, self._tbc_dev,
+                state(0), buf[o_w:o_w + 225].reshape(15, 15), buf[42:o_pre], state(21),
+                *common, whiten=buf[o_pre:o_w], W_prior=buf[o_w + 225:].reshape(15, 15),
+            )
+        else:
+            res = pose_inertial_optimize_packed(
+                self.camera, self._bf_dev, self._Rbc_dev, self._tbc_dev,
+                state(0), buf[42:o_pre], state(21), *common, whiten=buf[o_pre:o_w],
+            )
+        st = res.state
+        t_sync = time.perf_counter()
+        inl, n_inl, H, R_wb, p_w, v_w, bg, ba = device_fetch(
+            res.inliers, res.n_inliers, res.H, *st)
+        self.stats.record("sync_ms", (time.perf_counter() - t_sync) * 1e3)
+        self.stats.record_count("device_fetches", 1)
+        self.stats.record_count("vi_pose_lastframe" if lastframe else "vi_pose_anchor", 1)
+        self.n_inliers = int(n_inl)
+        frame.mp_ids[~inl] = -1
+        if self.n_inliers < max(min_inliers, 1):
+            self._prior_H = None
+            return False
+        self._prior_H = H.astype(np.float64)
+        R_wb = _orthonormalize(R_wb.astype(np.float64))
+        frame.R_cw, frame.t_cw = self._cam_from_body(R_wb, p_w.astype(np.float64))
+        frame.v_w = v_w.astype(np.float64)
+        frame.bg = bg.astype(np.float64)
+        frame.ba = ba.astype(np.float64)
+        self.v_w = frame.v_w
+        self.bias = (frame.bg, frame.ba)
         return True
 
     # -------------------------------------------------------- relocalization
@@ -954,6 +1310,13 @@ class Tracker:
         kf = m.keyframes.get(self.ref_kf_id)
         if kf is None:
             return False
+        # Inertial pre-init: insert a keyframe every 0.25 s so the temporal
+        # chain densifies fast enough for IMU initialization
+        # (Tracking.cc NeedNewKeyFrame inertial branch: >=0.25s pre-init).
+        if self.use_imu and not m.imu_initialized:
+            last_kf = m.keyframes.get(self.last_kf_id)
+            if last_kf is not None and frame.timestamp - last_kf.timestamp >= 0.25:
+                return True
         min_obs = 3 if m.n_keyframes() > 2 else 2
         ref_matches = kf.tracked_map_points(m.mappoints, min_obs)
         if ref_matches == 0:

@@ -23,6 +23,15 @@ step by step (cull points, triangulate, fuse, local bundle adjustment, cull
 keyframes): kernel launches, device busy time and host time of each step
 under the profiler with a synchronise after each, beside the unprofiled host
 times the mapper's own stats recorded for every keyframe of the run;
+then, for the stereo-inertial system (System(..., Sensor.IMU_STEREO) over a
+rendered 80-frame sequence with its IMU stream, inline mapping), one inertial
+fused frame after IMU init step by step (extraction + stereo, twm_step,
+tlm_step_vi, pack + fetch) and one local inertial BA window (the whole
+window with its host assembly and write-back, the solve alone), with kernel
+launches, device busy time and host time of each under the profiler, and
+the launches of one LM iteration of the LastFrame VI optimizer, of the
+keyframe-anchored one, of the visual one and of the inertial window BA
+(one iteration against two, from the recorded inputs);
 then the device time per call of both Hamming kernels against their plain
 versions at the paths' shapes (the mapper's 10240 x 1024 triangulation launch
 and a 3000 x 1024 fusion matrix among them), of the batched 4x4 SVD that
@@ -48,7 +57,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
-from fasttrack_tpu_torch import convert, fused_track, parity
+from fasttrack_tpu_torch import convert, fused_track, local_mapping, parity, tracking
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
 from fasttrack_tpu_torch.cameras.stereo import triangulate_two_view
 from fasttrack_tpu_torch.frame_pipeline import (
@@ -64,6 +73,7 @@ from fasttrack_tpu_torch.geometry import SE3, se3_identity
 from fasttrack_tpu_torch.ops import cuda_build, hamming_kernel
 from fasttrack_tpu_torch.ops.extractor import extract_orb_pair_stacked
 from fasttrack_tpu_torch.ops.project_match import search_by_projection
+from fasttrack_tpu_torch.optim import inertial, pose_optimize
 
 
 def busy_us(kernels) -> float:
@@ -310,6 +320,124 @@ def mapper_keyframe(dev, card, n_frames=62, profiled_kid=3):
     }))
 
 
+def profiled(fn):
+    """(result, {launches, device_busy_ms, host_ms}) of one call under the
+    profiler, with a synchronise before and after."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):                  # the tracer may lose a window's first kernels
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [k for k in cs.device_kernels(prof) if "spin_kernel" not in k.name]
+    return out, {"launches": len(kernels),
+                 "device_busy_ms": round(busy_us(kernels) / 1e3, 4) if kernels else 0.0,
+                 "host_ms_profiled_synchronised": round(host_ms, 3)}
+
+
+def inertial_frame_and_window(dev, card, n_frames=80):
+    """The stereo-inertial system over a rendered sequence; the last fused
+    inertial frame's calls and the last inertial window's solve are
+    recorded, then replayed step by step under the profiler."""
+    seq = cs.generate_sequence(n_frames=n_frames, h=cs.H, w=cs.W)
+    system = cs.make_inertial_system(seq, dev)
+    rec = {}
+    wrapped = {}
+    for mod, name in ((tracking, "process_stereo_frame_stacked"), (tracking, "twm_step"),
+                      (tracking, "tlm_step_vi"), (local_mapping, "local_inertial_ba")):
+        inner = getattr(mod, name)
+
+        def call(*args, _inner=inner, _name=name):
+            rec[_name] = args
+            return _inner(*args)
+
+        wrapped[(mod, name)] = inner
+        setattr(mod, name, call)
+    windows = []
+    inner_window = system.local_mapper._inertial_window_ba
+
+    def window(chain, *args, **kwargs):
+        windows.append((chain, args, kwargs))
+        return inner_window(chain, *args, **kwargs)
+
+    system.local_mapper._inertial_window_ba = window
+    try:
+        t_prev = -1.0
+        for f in seq.frames:
+            system.track_stereo(f.left, f.right, f.timestamp,
+                                imu=cs.imu_between(seq, t_prev, f.timestamp))
+            t_prev = f.timestamp
+            cs.check(system.tracking_state.name == "OK", "the inertial system lost track")
+    finally:
+        for (mod, name), inner in wrapped.items():
+            setattr(mod, name, inner)
+    cs.check(system.atlas.current.imu_initialized and "tlm_step_vi" in rec and windows,
+             "the inertial system did not reach a fused inertial frame and a window")
+    series = system.stats.series
+    steps = {}
+    fd, steps["extraction + stereo"] = profiled(
+        lambda: tracking.process_stereo_frame_stacked(*rec["process_stereo_frame_stacked"]))
+    twm_args, tlm_args = rec["twm_step"], rec["tlm_step_vi"]
+    twm, steps["twm_step"] = profiled(
+        lambda: fused_track.twm_step(fd.kps, fd.u_right, *twm_args[2:]))
+    tlm, steps["tlm_step_vi"] = profiled(
+        lambda: fused_track.tlm_step_vi(fd.kps, fd.u_right, *tlm_args[2:5], twm, *tlm_args[6:]))
+    _, steps["pack + fetch"] = profiled(
+        lambda: fused_track.pack_fused_vi_for_host(fd, twm, tlm).cpu())
+    chain, wargs, wkwargs = windows[-1]
+    _, whole = profiled(lambda: system.local_mapper._inertial_window_ba(chain, *wargs, **wkwargs))
+    ba_args = rec["local_inertial_ba"]
+    res, solve = profiled(lambda: inertial.local_inertial_ba(*ba_args))
+    _, fetch = profiled(lambda: [t.cpu() for t in (*res.states, res.points)])
+
+    # launches of one LM iteration: one iteration against two, from the inputs above
+    buf = tlm_args[-1]
+    o = 246 + 298
+    prev = inertial.BodyState(buf[0:9].reshape(3, 3), buf[9:12], buf[12:15], buf[15:18],
+                              buf[18:21])
+    pre = inertial.unpack_preintegrated(buf[246:o])
+    whiten, W_prior = buf[o + 3:o + 102], buf[o + 102:].reshape(15, 15)
+    cam, bf, R_bc, t_bc = tlm_args[4], tlm_args[3], tlm_args[13], tlm_args[14]
+    sf = torch.tensor([cs.CFG.scale_factor ** l for l in range(cs.CFG.n_levels)], device=dev)
+    obs = (twm.Xw_kp, torch.stack([fd.kps.x, fd.kps.y], -1), fd.u_right,
+           1.0 / sf[fd.kps.level] ** 2, twm.bound_kp)
+    calls = {
+        "lastframe VI optimizer": lambda it: inertial.pose_inertial_optimize_lastframe(
+            cam, bf, R_bc, t_bc, prev, buf[21:246].reshape(15, 15), pre, prev, *obs,
+            rounds=1, iters=it, whiten=whiten, W_prior=W_prior),
+        "keyframe-anchored VI optimizer": lambda it: inertial.pose_inertial_optimize(
+            cam, bf, R_bc, t_bc, prev, pre, prev, *obs, rounds=1, iters=it, whiten=whiten),
+        "visual pose optimizer": lambda it: pose_optimize(
+            cam, bf, SE3(twm.pose_R, twm.pose_t), *obs, rounds=1, iters=it),
+        "inertial window BA": lambda it: inertial.local_inertial_ba(*ba_args, iters=it),
+    }
+    per_iteration = {}
+    for name, fn in calls.items():
+        one = profiled(lambda: fn(1))[1]["launches"]
+        two = profiled(lambda: fn(2))[1]["launches"]
+        per_iteration[name] = {"launches_per_lm_iteration": two - one,
+                               "launches_one_iteration_call": one}
+    print(json.dumps({
+        "path": "stereo-inertial system: one fused inertial frame by step (profiled, a "
+                "synchronise after each), one inertial window", "card": card,
+        "fused_inertial_frame": steps,
+        "frame_total": {k: round(sum(v[k] for v in steps.values()), 4) for k in (
+            "launches", "device_busy_ms", "host_ms_profiled_synchronised")},
+        "inertial_window": {"whole, host assembly to write-back": whole, "solve": solve,
+                            "fetch of states and points": fetch,
+                            "states": int(ba_args[0].state_free.shape[0]),
+                            "points": int(ba_args[0].points.shape[0]),
+                            "dtype": str(ba_args[0].points.dtype)},
+        "per_lm_iteration": per_iteration,
+        "unprofiled_host_ms_median": {k: round(float(np.median(series[k])), 3) for k in (
+            "fused_host_pre", "fused_dispatch", "fused_host_post", "lm_inertial_window")
+            if series[k]},
+        "fused_inertial_frames": int(sum(series["fused_vi_frames"])),
+    }))
+
+
 def triangulation_svd(dev, card):
     """The batched 4x4 SVD of triangulate_two_view at the mapper's shape (10
     neighbour keyframes x 1024 rows): device time, and the host's clock
@@ -328,7 +456,9 @@ def triangulation_svd(dev, card):
     call = lambda: triangulate_two_view(r1, r2, T21)
     err = float((call() - torch.from_numpy(X1.astype(np.float32)).to(dev)).abs().max())
     cs.check(err < 1e-2, f"triangulation of exact rays is off by {err}")
-    device_ms = cs.device_ms(call, calls=5)
+    # the profiler's kernel durations only: the call synchronises (the SVD's
+    # error check), so CUDA events behind a spin kernel cannot bracket it
+    device_ms = cs.profiler_ms(call, calls=5, windows=3)
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -337,7 +467,9 @@ def triangulation_svd(dev, card):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"triangulate_two_view at {(B, n)} (one batched 4x4 SVD of {B * n} systems) ({card}): "
-          + json.dumps({"device_ms": round(device_ms, 4), "host_ms_synchronised_median":
+          + json.dumps({"device_ms": "not measured (the profiler dropped kernel events)"
+                        if device_ms is None else round(device_ms, 4),
+                        "host_ms_synchronised_median":
                         round(float(np.median(walls)), 4), "max_abs_err_m": err}))
 
 
@@ -460,6 +592,7 @@ def main():
     fused_step(dev, card, cam, bf, min_z, frames)
     tracker_frames(dev, card)
     mapper_keyframe(dev, card)
+    inertial_frame_and_window(dev, card)
     triangulation_svd(dev, card)
     kernel_times(dev, card, args.earlier_matrix_source)
 

@@ -10,8 +10,13 @@
   `--device cpu --gt`: the ATE gate of the JAX package's test of its script
   (`ate_rmse < 0.10`, `n_associated >= 10`), and an ATE no worse than the
   JAX script's on the same files by more than 5 mm;
-- what the script does not run yet (`--imu`, a `--mode` other than 1111)
-  exits with the message of the NotImplementedError.
+- `--imu` on a rendered layout of 70 frames with its IMU stream (the
+  inertial gate, ROADMAP F6: IMU init needs 2 s of keyframes, which 16
+  frames never reach): ate.json says `imu_initialized` and the ATE is
+  under 0.10 m; on a layout without `imu0/data.csv` the script exits with
+  an error that names it;
+- what the script does not run yet (a `--mode` other than 1111) exits with
+  the message of the NotImplementedError.
 """
 
 import contextlib
@@ -297,7 +302,7 @@ def test_example_writes_stats(driven):
     assert os.path.isfile(os.path.join(out_t, "data", "lm_total.txt"))
 
 
-@pytest.mark.parametrize("flags, item", [(["--imu"], "M8"), (["--mode", "1011"], "M5c"),
+@pytest.mark.parametrize("flags, item", [(["--mode", "1011"], "M5c"),
                                          (["--mode", "0000", "--po", "0"], "M5c")])
 def test_example_exits_with_the_message_of_what_is_not_ported(rendered, tmp_path, flags, item):
     with pytest.raises(SystemExit) as e:
@@ -305,4 +310,41 @@ def test_example_exits_with_the_message_of_what_is_not_ported(rendered, tmp_path
             os.path.join(rendered, "settings.yaml"), rendered, "--out", str(tmp_path / "o"),
             "--device", "cpu"] + flags)
     assert isinstance(e.value.code, str) and item in e.value.code
+    assert not (tmp_path / "o").exists()
+
+
+# ------------------------------------------------------------ the inertial gate
+@pytest.fixture(scope="module")
+def driven_imu(tmp_path_factory):
+    """70 rendered frames with their IMU stream through the port's script
+    with --imu: IMU init needs 6 keyframes over 2 s (40 frames at 20 Hz)."""
+    root = str(tmp_path_factory.mktemp("seq_imu"))
+    run_script(os.path.join(TOOLS, "render_euroc_synthetic.py"), [root, "--frames", "70"])
+    out = str(tmp_path_factory.mktemp("out_imu"))
+    with one_torch_thread():
+        run_script(os.path.join(EXAMPLES, "torch_stereo_euroc.py"), [
+            os.path.join(root, "settings.yaml"), root, "--imu", "--gt",
+            os.path.join(root, "gt.txt"), "--out", out, "--device", "cpu"])
+    return out
+
+
+def test_example_with_imu_initializes_and_passes_the_ate_gate(driven_imu):
+    with open(os.path.join(driven_imu, "ate.json")) as f:
+        ate = json.load(f)
+    assert ate["imu_initialized"] is True, ate
+    assert ate["ate_rmse"] < 0.10 and ate["n_associated"] >= 60, ate
+    assert ate["n_frames_tracked"] == 70
+    with open(os.path.join(driven_imu, "data", "lm_imu_inits.txt")) as f:
+        assert f.read().split() == ["0:", "1.0000"]
+
+
+def test_example_with_imu_needs_the_imu_stream(tmp_path):
+    root = str(tmp_path / "seq")
+    run_script(os.path.join(TOOLS, "render_euroc_synthetic.py"),
+               [root, "--frames", "4", "--no-imu"])
+    with pytest.raises(SystemExit) as e:
+        run_script(os.path.join(EXAMPLES, "torch_stereo_euroc.py"), [
+            os.path.join(root, "settings.yaml"), root, "--imu", "--out", str(tmp_path / "o"),
+            "--device", "cpu"])
+    assert isinstance(e.value.code, str) and "imu0/data.csv" in e.value.code
     assert not (tmp_path / "o").exists()

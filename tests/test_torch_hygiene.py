@@ -11,7 +11,9 @@
 - The port runs on the card: a constructor given `device=None` goes through
   `device.resolve`, which fails where there is no card; `device="cpu"` is
   honoured. So do `Tracker`, `LocalMapper`, `System` and the bundle
-  adjustment's window assembly, whose tensors then follow their device.
+  adjustment's window assembly, whose tensors then follow their device;
+  and, with an IMU, `ImuCalib`, `Tracker`, `LocalMapper` and
+  `System(Sensor.IMU_STEREO)`.
 - `nputils.device_fetch` returns what it was given, in one copy.
 """
 
@@ -34,6 +36,7 @@ from fasttrack_tpu_torch import (
     system,
     tracking,
 )
+from fasttrack_tpu_torch.imu import preintegration as tpre
 from fasttrack_tpu.ops import descriptor as jax_descriptor
 from fasttrack_tpu.ops.pattern import PATTERN as JAX_PATTERN
 from fasttrack_tpu_torch.ops import descriptor
@@ -74,7 +77,8 @@ def test_package_has_the_slice_modules():
         "datasets/synthetic.py", "evaluation/ate.py",
         "cameras/stereo.py", "optim/ba_core.py", "optim/local_ba.py", "ba_assembly.py",
         "ops/host_kernels.py", "local_mapping.py", "settings.py", "datasets/loaders.py",
-        "system.py",
+        "system.py", "imu/__init__.py", "imu/preintegration.py", "imu/init.py",
+        "optim/inertial.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu"):
@@ -129,6 +133,15 @@ CONSTRUCTORS = {
         np.zeros((7, 4)), np.zeros(4), np.zeros(6), np.zeros(6, bool))),
     "keypoints_from_numpy": (convert.keypoints_from_numpy, _keypoint_args()),
     "tensor_from_numpy": (convert.tensor_from_numpy, (np.arange(3), np.float32)),
+    "imu_calib_from_numpy": (convert.imu_calib_from_numpy, (
+        np.eye(3), np.zeros(3), 1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)),
+    "imu_bias_from_numpy": (convert.imu_bias_from_numpy, (np.zeros(3), np.zeros(3))),
+    "preintegrated_from_packed": (convert.preintegrated_from_packed, (
+        np.zeros(tpre.PRE_PACKED_SIZE),)),
+    "preintegrated_from_numpy": (convert.preintegrated_from_numpy, (tpre.HostPreintegrated(),)),
+    "body_state_from_numpy": (convert.body_state_from_numpy, (
+        np.eye(3), np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3))),
+    "ImuCalib.default": (tpre.ImuCalib.default, (200.0,)),
     "ba_problem_from_numpy": (convert.ba_problem_from_numpy, ({
         "R": np.tile(np.eye(3), (2, 1, 1)), "t": np.zeros((2, 3)), "points": np.zeros((4, 3)),
         "obs_uv": np.zeros((4, 2, 2)), "obs_ur": np.zeros((4, 2)),
@@ -142,6 +155,8 @@ def _tensors(value):
         return [value]
     if isinstance(value, cameras.Camera):
         return [value.params]
+    if not isinstance(value, tuple):
+        return []                       # the noise densities of an ImuCalib
     return [t for v in value for t in _tensors(v)]
 
 
@@ -161,7 +176,7 @@ def test_constructor_honours_cpu_and_defaults_to_the_card(name, monkeypatch):
         asked.append(dev)
         return device.resolve(dev if dev is not None else "cpu")
 
-    for module in (geometry.se3, cameras.models, convert):
+    for module in (geometry.se3, cameras.models, convert, tpre):
         monkeypatch.setattr(module, "resolve", fake_resolve)
     fn(*args)
     assert asked == [None]
@@ -291,3 +306,31 @@ def test_orthonormalize_has_one_copy(rng):
     np.testing.assert_array_equal(got, jax_orthonormalize(R))
     np.testing.assert_allclose(got @ got.T, np.eye(3), atol=1e-14)
     assert np.linalg.det(got) == pytest.approx(1.0)   # a rotation, even from a reflection
+
+
+def test_the_inertial_system_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    from fasttrack_tpu_torch.settings import Settings
+
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    cfg = OrbConfig(240, 320, n_features=256, n_levels=4)
+    calib = tpre.ImuCalib.default(device="cpu")
+    tr = tracking.Tracker(cam, cfg, 28.0, Atlas(), imu_calib=calib, device="cpu")
+    lm = local_mapping.LocalMapper(Atlas(), cam, 28.0, imu_calib=calib, device="cpu")
+    for dev in (tr._Rbc_dev, tr._tbc_dev, lm._Rbc_dev, lm._tbc_dev):
+        assert dev.device.type == "cpu"
+    assert tr._R_bc.dtype == lm._R_bc.dtype == np.float64
+
+    def settings():
+        return Settings(camera1=cam, bf=28.0, width=320, height=240, n_features=256, n_levels=4)
+
+    s = system.System(settings(), system.Sensor.IMU_STEREO, vocabulary=False, device="cpu")
+    assert s.imu_calib.R_bc.device.type == "cpu" and s.tracker.use_imu
+    made = _asks_the_resolver(monkeypatch, [system, tracking, local_mapping, convert], lambda: (
+        system.System(settings(), system.Sensor.IMU_STEREO, vocabulary=False)))
+    assert made.imu_calib.R_bc.device == made.tracker._Rbc_dev.device == made.device
+    monkeypatch.undo()
+    _asks_the_resolver(monkeypatch, [tracking], lambda: tracking.Tracker(
+        cam, cfg, 28.0, Atlas(), imu_calib=calib))
+    monkeypatch.undo()
+    _asks_the_resolver(monkeypatch, [local_mapping], lambda: local_mapping.LocalMapper(
+        Atlas(), cam, 28.0, imu_calib=calib))

@@ -622,7 +622,7 @@ def test_tracker_with_a_mapper_follows_the_jax_tracker(mapped):
 
 # -------------------------------------------------------------- what is left out
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object()), "M8"),
+    (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial
     (dict(monocular=True), "M9"),
     (dict(loop_closer=object()), "M7"),
     (dict(mesh=object()), "M10"),

@@ -242,9 +242,11 @@ def _settings(**kw):
 LEFT_OUT = {
     "default vocabulary": (dict(), dict(vocabulary=None), "M7"),
     "a vocabulary": (dict(), dict(vocabulary=object()), "M7"),
-    "IMU_STEREO": (dict(), dict(sensor=Sensor.IMU_STEREO), "M8"),
-    "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M8"),
-    "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M8"),
+    # the stereo-inertial system runs (tests/test_torch_system_inertial.py);
+    # its loop closing is M7's, like the visual system's
+    "IMU_STEREO": (dict(), dict(sensor=Sensor.IMU_STEREO, vocabulary=None), "M7"),
+    "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9"),
+    "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9"),
     "MONOCULAR": (dict(), dict(sensor=Sensor.MONOCULAR), "M9"),
     "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9"),
     "input resize": (dict(new_width=160, new_height=120), dict(), "M9"),

@@ -431,7 +431,7 @@ CFG = OrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS)
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object()), "M8"),
+    (dict(imu_calib=object(), monocular=True), "M9"),     # monocular-inertial
     (dict(monocular=True), "M9"),
     (dict(stereo_rig=object()), "M9"),
 ])
@@ -449,10 +449,12 @@ def test_kb8_camera_raises():
 @pytest.mark.parametrize("call, item", [
     (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),
     (lambda tr, img: tr.track_monocular(img, 0.0), "M9"),
-    (lambda tr, img: tr.grab_imu([(0.0, np.zeros(3), np.zeros(3))]), "M8"),
-], ids=["track_rgbd", "track_monocular", "grab_imu"])
+    (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),   # with samples queued
+], ids=["track_rgbd", "track_monocular", "track_rgbd_after_grab_imu"])
 def test_left_out_entry_points_raise(call, item):
     tr = tracking.Tracker(_cam(), CFG, 28.0, Atlas(), device="cpu")
+    tr.grab_imu([(0.0, np.zeros(3), np.zeros(3))])     # queues, as the JAX Tracker does
+    assert len(tr.imu_queue) == 1
     with pytest.raises(NotImplementedError, match=item):
         call(tr, np.zeros((H, W), np.uint8))
 
