@@ -10,7 +10,8 @@ at the first adjustment, so phase 11 fails).
 Phases, each printing a line; any failure raises and exits non-zero:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles both CUDA kernels from ops/csrc with nvcc (sm_90a), side
-   by side;
+   by side, and the host kernels' C++ library (ops/csrc/fasttrack_native.cpp,
+   g++) beside them;
 3. kernels against plain: hamming_penalty_matrix (bitwise equal) and the
    fused hamming_penalty_topk (values and indices equal) against their
    plain PyTorch versions at the tracker's shapes, the local mapper's
@@ -74,20 +75,40 @@ Phases, each printing a line; any failure raises and exits non-zero:
    window of phase 13, recorded with their inputs, run again on the CPU
    from the same inputs: bindings equal, poses and velocities within 1e-3,
    biases within 1e-4, H within 1e-2 of its largest entry; the window
-   also in float64 on both (ROADMAP P5).
+   also in float64 on both (ROADMAP P5);
+15. BASELINE.md's toggle matrix on the visual Tracker (no mapper): the first
+   N_TOGGLE_FRAMES frames of phase 8's sequence through seven trackers in
+   turns, frame by frame: masks 1111 with and without pose optimization,
+   0000 with and without, 1000, 1100 and 0011 (the host sides of the
+   offload toggles: ops/host_kernels.py over the native library). Per
+   configuration: every frame OK, the ATE, ms/frame on the host's clock,
+   the Stats medians of extraction, the motion-model and local-map stages,
+   fetches per frame, and the tracker's kernel launches by the stage that
+   made them, checked against the mask (a toggle that is off never
+   launches its device matcher; under 0000 the only launch is the
+   reference-keyframe matcher's, which runs on the device under every mask
+   as in the JAX package); BASELINE.md's published row beside each;
+16. the stereo-inertial system under mask 0000 (BASELINE.md's CPU row):
+   the first N_HOST_INERTIAL_FRAMES frames of phase 13's sequence with
+   their IMU samples, inline mapping: every frame OK, IMU init, |bg|, the
+   ATE (<= 0.02 m over the frames after init; over all of them the bound
+   that tools/host_route_drift.py's readings set, ROADMAP F15), ms/frame
+   before and after init, and no tracker launch of a Hamming kernel but the
+   reference-keyframe matcher's.
 
-Phases 8 to 12 share one rendered sequence: phase 8 tracks its first 40
+Phases 8 to 12 and 15 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
 same frames.
 
 The line before the last two is a JSON object of the kernels; the last is
-{"ok": true, "device": {...}}. Each kernel's `launches` is what the five
-paths (phases 4, 6, 8, 10 and 13) launched, counted from 0 at each path's
-start. The matrix kernel is launched by the system paths alone (map-point
+{"ok": true, "device": {...}}. Each kernel's `launches` is what the seven
+paths (phases 4, 6, 8, 10, 13, 15 and 16) launched, counted from 0 at each
+path's start. The matrix kernel is launched by the system paths alone (map-point
 fusion); no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -101,8 +122,10 @@ from torch.profiler import ProfilerActivity, profile
 from fasttrack_tpu_torch import (
     ba_assembly,
     convert,
+    frame_pipeline,
     fused_track,
     local_mapping,
+    native,
     parity,
     tracking,
 )
@@ -117,6 +140,7 @@ from fasttrack_tpu_torch.frame_pipeline import (
     unpack_hot_path,
 )
 from fasttrack_tpu_torch.geometry import se3_identity
+from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.ops import hamming_kernel
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.ops.stereo_match import valid_penalty
@@ -159,6 +183,31 @@ N_ASYNC_FRAMES = 50             # phase 12: three keyframes, one adjustment
 MAX_SYSTEM_CPU_FRAMES = 48      # phase 11 stops after the frame that follows the third keyframe
 N_INERTIAL_FRAMES = 160         # phase 13: 8 s, IMU init at ~2 s, the 5 s full-BA stage after it
 N_REPLAY_FRAMES = 3             # phase 14: inertial fused frames replayed on the CPU
+# Phases 15 and 16 run the host extractor, whose NumPy pyramid takes ~2 s a
+# frame on the card's host; phase 15 is cut from 40 frames to 24 so that the
+# whole run stays inside its time limit (phases 1-14 took 322-588 s across calls)
+N_TOGGLE_FRAMES = 24            # phase 15: of phase 8's sequence, per configuration
+N_HOST_INERTIAL_FRAMES = 60     # phase 16: of phase 13's sequence (IMU init at frame 40)
+# Phase 16's ATE over all its frames. Before IMU init the host extractor's map
+# lets a local BA pull the keyframes by centimetres, in the JAX package as in
+# the port (ROADMAP F15). tools/host_route_drift.py on the card's host CPU read
+# 0.0248 m for the JAX package and 0.0366 m for the port over these 60 frames
+# (seeds 1 and 2: 0.0682 / 0.0753 m and 0.0220 / 0.0043 m). The limit is twice
+# the JAX package's reading on this sequence; the frames after init are held
+# to ATE_LIMIT_M.
+HOST_ROUTE_ATE_LIMIT_M = 0.05
+# phase 15's configurations (mask, pose optimization) and BASELINE.md's
+# published tracking ms/frame for each (MH01 / V101 / room1 / corridor1,
+# stereo-inertial): FastTrack on the reference's paper rig, hardware
+# unrecorded; a yardstick, not the port's number and not a target
+TOGGLE_CONFIGS = [("1111", True), ("1111", False), ("0000", True), ("0000", False),
+                  ("1000", True), ("1100", True), ("0011", True)]
+BASELINE_MS = {("0000", True): (15.95, 14.86, 15.48, 16.05),
+               ("1000", True): (9.80, 10.17, 11.70, 11.95),
+               ("1100", True): (9.10, 9.16, 11.11, 11.58),
+               ("0011", True): (15.66, 14.69, 13.02, 13.61),
+               ("0000", False): (13.82, 12.79, 10.18, 10.93),
+               ("1111", False): (6.83, 6.62, 5.74, 6.41)}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -655,9 +704,10 @@ def tracker_step(tracker, frame, entry=None, imu=None) -> dict:
     }
 
 
-def make_tracker(seq, device) -> Tracker:
+def make_tracker(seq, device, kernel_config=None) -> Tracker:
     cam = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device)
-    return Tracker(cam, CFG, seq.fx * seq.baseline, Atlas(), device=device)
+    return Tracker(cam, CFG, seq.fx * seq.baseline, Atlas(), kernel_config=kernel_config,
+                   device=device)
 
 
 def trajectory_ate(trajectory, seq) -> dict:
@@ -1025,7 +1075,7 @@ def phase_system_async(device, seq, card):
     )
 
 
-def make_inertial_system(seq, device) -> System:
+def make_inertial_system(seq, device, kernel_config=None) -> System:
     """The stereo-inertial system at full width, built directly (no YAML):
     the renderer's body frame is the left camera's (T_b_c1 = I) and its IMU
     stream is exact at 200 Hz; the noise densities are the settings'
@@ -1036,7 +1086,8 @@ def make_inertial_system(seq, device) -> System:
         n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
         T_b_c1=np.eye(4), imu_frequency=200.0,
     )
-    return System(settings, Sensor.IMU_STEREO, vocabulary=False, device=device)
+    return System(settings, Sensor.IMU_STEREO, kernel_config=kernel_config, vocabulary=False,
+                  device=device)
 
 
 def imu_between(seq, t0, t1):
@@ -1269,6 +1320,247 @@ def phase_inertial_card_vs_cpu(rec):
           f"for comparison): {json.dumps(windows)}")
 
 
+TRACKER_STAGES = (
+    ("stereo", frame_pipeline, "_stereo_match_stage"),   # the device stereo matcher
+    ("twm", tracking, "twm_match_packed"),               # stepwise motion-model matcher
+    ("tlm", tracking, "tlm_match_packed"),               # stepwise local-map matcher
+    ("trk", tracking, "match_fisheye"),                  # reference-keyframe matcher
+    ("fused", tracking, "twm_step"),                     # the fused frame's two steps
+    ("fused", tracking, "tlm_step"),
+    ("fused", tracking, "tlm_step_vi"),
+)
+
+
+def watch_tracker_stages():
+    """Wraps the tracker's device stages that launch a Hamming kernel:
+    counts[stage] = [top-k launches, matrix launches, calls], summed over
+    the calls made while the wrappers are in. Returns (counts, restore)."""
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    counts = {name: [0, 0, 0] for name, _, _ in TRACKER_STAGES}
+    inner = [(module, attr, getattr(module, attr)) for _, module, attr in TRACKER_STAGES]
+
+    def wrap(name, fn):
+        def stage(*args, **kwargs):
+            topk, mat = kern.launches, matrix.launches
+            out = fn(*args, **kwargs)
+            c = counts[name]
+            c[0] += kern.launches - topk
+            c[1] += matrix.launches - mat
+            c[2] += 1
+            return out
+        return stage
+
+    for (name, module, attr), (_, _, fn) in zip(TRACKER_STAGES, inner):
+        setattr(module, attr, wrap(name, fn))
+
+    def restore():
+        for module, attr, fn in inner:
+            setattr(module, attr, fn)
+
+    return counts, restore
+
+
+def stage_snapshot(counts) -> dict:
+    return {name: list(c) for name, c in counts.items()}
+
+
+def stage_delta(after, before) -> dict:
+    return {name: [a - b for a, b in zip(after[name], before[name])] for name in after}
+
+
+def mask_name(mask, po) -> str:
+    return f"{mask} PO {'on' if po else 'off'}"
+
+
+def phase_toggle_matrix(device, seq, card):
+    """BASELINE.md's toggle matrix on the visual Tracker: one tracker per
+    configuration, all fed frame by frame in turns, so that the host's
+    drift within the call falls on every configuration alike."""
+    reset_launch_counts()
+    counts, restore = watch_tracker_stages()
+    trackers = [make_tracker(seq, device, KernelConfig.from_bitmask(m, pose_optimization=po))
+                for m, po in TOGGLE_CONFIGS]
+    logs = [[] for _ in TOGGLE_CONFIGS]
+    try:
+        for f in seq.frames[:N_TOGGLE_FRAMES]:
+            for tr, log in zip(trackers, logs):
+                before = stage_snapshot(counts)
+                r = tracker_step(tr, f)
+                r["stages"] = stage_delta(stage_snapshot(counts), before)
+                log.append(r)
+    finally:
+        restore()
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    check(sum(r["launches"] for log in logs for r in log) == kern.launches
+          and matrix.launches == 0,
+          f"phase 15: {kern.launches} top-k and {matrix.launches} matrix launches in all, "
+          f"{sum(r['launches'] for log in logs for r in log)} seen by the trackers' frames")
+    rows = []
+    for (mask, po), tr, log in zip(TOGGLE_CONFIGS, trackers, logs):
+        name = mask_name(mask, po)
+        for i, r in enumerate(log):
+            check(r["state"] == "OK", f"phase 15 {name} frame {i}: state {r['state']}")
+            check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(),
+                  f"phase 15 {name} frame {i}: pose")
+        stages = {k: [sum(r["stages"][k][j] for r in log) for j in range(3)]
+                  for k in log[0]["stages"]}
+        topk = {k: v[0] for k, v in stages.items()}
+        check(sum(topk.values()) == sum(r["launches"] for r in log)
+              and all(v[1] == 0 for v in stages.values()),
+              f"phase 15 {name}: the tracker's launches {sum(r['launches'] for r in log)} are not "
+              f"those of its stages {stages}")
+        orb, stereo, slp, pe = (c == "1" for c in mask)
+        # a stage whose toggle is off never launches on the card; one that
+        # is on launches where its stage ran
+        check((topk["stereo"] > 0) == (orb and stereo),
+              f"phase 15 {name}: {topk['stereo']} stereo launches")
+        check(topk["tlm"] + topk["fused"] == 0 if not slp else topk["tlm"] + topk["fused"] > 0,
+              f"phase 15 {name}: local-map launches {topk['tlm']} stepwise, {topk['fused']} fused")
+        check(topk["twm"] == 0 if not pe else topk["twm"] + topk["fused"] > 0,
+              f"phase 15 {name}: motion-model launches {topk['twm']}")
+        # the reference-keyframe matcher runs on the device under every mask
+        # (JAX tracking.py: match_fisheye is not toggled), one K = 2 launch
+        # per call
+        check(topk["trk"] == stages["trk"][2] == len(tr.stats.series["trk"]),
+              f"phase 15 {name}: {topk['trk']} reference-keyframe launches for "
+              f"{len(tr.stats.series['trk'])} calls")
+        if mask == "0000":
+            check(sum(topk.values()) - topk["trk"] == 0,
+                  f"phase 15 {name}: the tracker launched a Hamming kernel outside the "
+                  f"reference-keyframe matcher: {topk}")
+        fused = sum(r["path"] == "fused" for r in log)
+        check(fused == 0 if mask != "1111" or not po else fused >= N_TOGGLE_FRAMES - 6,
+              f"phase 15 {name}: {fused} fused frames")
+        ate = trajectory_ate(tr.trajectory, seq)
+        check(ate["n"] == N_TOGGLE_FRAMES and ate["rmse"] < ATE_LIMIT_M,
+              f"phase 15 {name}: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, "
+              f"limit {ATE_LIMIT_M} m")
+        times = [r["ms"] for r in log[2:]]
+
+        def median(series):
+            v = tr.stats.series.get(series, [])
+            return float(np.median(v)) if v else None
+
+        row = {"mask": mask, "po": po, "frames": len(log), "timed_frames": len(times),
+               "ms_median": float(np.median(times)), "ms_p90": float(np.percentile(times, 90)),
+               "orb_extraction_ms_median": median("orb_extraction"),
+               "twm_ms_median": median("twm"), "tlm_ms_median": median("tlm"),
+               "fused_frames": fused,
+               "fetches_per_frame": sum(r["fetches"] for r in log) / len(log),
+               "topk_launches_by_stage": topk, "matrix_launches": 0,
+               "ate_rmse_m": ate["rmse"], "baseline_md_ms": BASELINE_MS.get((mask, po))}
+        rows.append(row)
+        base = row["baseline_md_ms"]
+        fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+        print(f"phase 15 toggle matrix, {name}: {len(log)} frames at {W}x{H} on {card}: every "
+              f"frame OK; ms/frame median {row['ms_median']:.3f}, p90 {row['ms_p90']:.3f} over "
+              f"{len(times)} (host clock, frames after the first two); Stats medians ms: "
+              f"orb_extraction {fmt(row['orb_extraction_ms_median'])}, twm "
+              f"{fmt(row['twm_ms_median'])}, tlm {fmt(row['tlm_ms_median'])} (stepwise frames); "
+              f"{fused} fused frames; fetches per frame {row['fetches_per_frame']:.3f}; the "
+              f"tracker's top-k launches by stage {topk}, matrix launches 0; ATE RMSE "
+              f"{ate['rmse']:.4f} m; BASELINE.md's published row (the reference's paper rig, "
+              f"hardware unrecorded): "
+              + ("none published" if base is None else
+                 " / ".join(f"{v:.2f}" for v in base) + " ms/frame (MH01 / V101 / room1 / "
+                 "corridor1)"))
+    print("phase 15 configurations: " + json.dumps(rows))
+    return kern.launches, matrix.launches, rows
+
+
+def phase_system_inertial_host(device, seq, card):
+    """BASELINE.md's CPU row: the stereo-inertial system a user calls with
+    every offload toggle off (pose optimization on, on the card as in the
+    JAX package), inline mapping."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = make_inertial_system(seq, device, KernelConfig.from_bitmask("0000"))
+    keyframes, rotations = [], []
+    watch_mapper(system, keyframes)
+    m = system.atlas.current
+    inner_rotation = m.apply_scaled_rotation
+
+    def apply_scaled_rotation(R_gw, scale, *args, **kwargs):
+        rotations.append(np.asarray(R_gw, np.float64).copy())
+        return inner_rotation(R_gw, scale, *args, **kwargs)
+
+    m.apply_scaled_rotation = apply_scaled_rotation   # IMU init rotates the world once
+    counts, restore = watch_tracker_stages()
+    try:
+        log, t_prev = [], -1.0
+        for f in seq.frames[:N_HOST_INERTIAL_FRAMES]:
+            n_kf = len(keyframes)
+            r = tracker_step(system.tracker, f, entry=system,
+                             imu=imu_between(seq, t_prev, f.timestamp))
+            r["mapped"] = keyframes[n_kf:]
+            r["imu_initialized"] = bool(system.atlas.current.imu_initialized)
+            log.append(r)
+            t_prev = f.timestamp
+    finally:
+        restore()
+    system.shutdown()
+    for i, r in enumerate(log):
+        check(r["state"] == "OK", f"phase 16 frame {i}: state {r['state']}")
+        check(r["path"] == "stepwise", f"phase 16 frame {i}: {r['path']}")
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"phase 16 frame {i}: pose")
+    check(any(r["imu_initialized"] for r in log), "phase 16: the IMU never initialized")
+    init_frame = next(i for i, r in enumerate(log) if r["imu_initialized"])
+    bg = system.tracker.bias[0]
+    check(np.linalg.norm(bg) < 0.05, f"phase 16: gyro bias {bg} (the stream has none)")
+    check(len(rotations) == 1, f"phase 16: {len(rotations)} world rotations, IMU init makes one")
+    tilt = float(np.degrees(np.arccos(np.clip((np.trace(rotations[0]) - 1) / 2, -1.0, 1.0))))
+    # The trajectory keeps each frame's pose as tracked: frames up to the
+    # init are in the world before its rotation, the others after it.
+    traj = system.tracker.trajectory
+    ate = trajectory_ate(traj, seq)
+    ate_pre, ate_post = trajectory_ate(traj[:init_frame + 1], seq), trajectory_ate(
+        traj[init_frame + 1:], seq)
+    check(ate["n"] == N_HOST_INERTIAL_FRAMES and ate_post["rmse"] <= ATE_LIMIT_M
+          and ate["rmse"] <= HOST_ROUTE_ATE_LIMIT_M,
+          f"phase 16: ATE RMSE {ate_post['rmse']:.4f} m over the {ate_post['n']} frames after IMU "
+          f"init (limit {ATE_LIMIT_M} m), {ate['rmse']:.4f} m over all {ate['n']} (limit "
+          f"{HOST_ROUTE_ATE_LIMIT_M} m), {ate_pre['rmse']:.4f} m before init")
+    mapper_topk = sum(k["topk"] for k in keyframes)
+    mapper_matrix = sum(k["matrix"] for k in keyframes)
+    tracker_topk, tracker_matrix = kern.launches - mapper_topk, matrix.launches - mapper_matrix
+    check(tracker_matrix == 0 and tracker_topk == counts["trk"][0] == counts["trk"][2]
+          and sum(c[0] for k, c in counts.items() if k != "trk") == 0,
+          f"phase 16: the tracker launched {tracker_topk} top-k and {tracker_matrix} matrix "
+          f"kernels, by stage {counts}")
+
+    def ms(rows):
+        v = [r["ms"] for r in rows]
+        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
+
+    times = {
+        "before IMU init, no keyframe": ms([r for r in log[2:init_frame] if not r["mapped"]]),
+        "after IMU init, no keyframe": ms([r for r in log[init_frame + 1:] if not r["mapped"]]),
+        "frames with a keyframe": ms([r for r in log[1:] if r["mapped"]]),
+    }
+    series = system.stats.series
+    print(
+        f"phase 16 stereo-inertial system, mask 0000 PO on, inline mapping: {len(log)} frames at "
+        f"{W}x{H} through System.track_stereo(..., imu=...) on {card}: every frame OK and "
+        f"stepwise; IMU initialized at frame {init_frame}, |bg| {np.linalg.norm(bg):.5f} rad/s; "
+        f"ms/frame median, p90 (count): "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; Stats medians ms: orb_extraction {np.median(series['orb_extraction']):.3f}, "
+        f"twm {np.median(series['twm']):.3f}, tlm {np.median(series['tlm']):.3f}; fetches per "
+        f"frame {sum(r['fetches'] for r in log) / len(log):.3f}; keyframes {len(keyframes)}; "
+        f"the init's world rotation {tilt:.3f} deg; ATE RMSE {ate_post['rmse']:.4f} m over the "
+        f"{ate_post['n']} frames after init (limit {ATE_LIMIT_M}), {ate_pre['rmse']:.4f} m over "
+        f"the {ate_pre['n']} up to it, {ate['rmse']:.4f} m over all (limit "
+        f"{HOST_ROUTE_ATE_LIMIT_M}; ROADMAP F15: the host extractor's map drifts before init, in "
+        f"the JAX package too); the tracker's top-k launches "
+        f"{tracker_topk} (all the reference-keyframe matcher's), matrix 0; the mapper's top-k "
+        f"{mapper_topk}, matrix {mapper_matrix}; BASELINE.md's CPU row (0000, PO on; the "
+        f"reference's paper rig, hardware unrecorded): "
+        + " / ".join(f"{v:.2f}" for v in BASELINE_MS[("0000", True)])
+        + " ms/frame (MH01 / V101 / room1 / corridor1)"
+    )
+    return kern.launches, matrix.launches
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -1283,25 +1575,33 @@ def main():
     print(f"phase 1 device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
           f"nvidia-smi: {card}")
 
-    # 2. build
+    # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
-    hamming_kernel.load_kernels()
-    print(f"phase 2 build: {hamming_kernel.MATRIX_SOURCE} and {hamming_kernel.TOPK_SOURCE} built "
-          f"side by side and loaded in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)
+        hamming_kernel.load_kernels()
+        host_lib = host_lib.result()
+    native.hamming_matrix_packed(np.zeros((1, 32), np.uint8), np.zeros((1, 32), np.uint8))
+    print(f"phase 2 build: {hamming_kernel.MATRIX_SOURCE} and {hamming_kernel.TOPK_SOURCE} (nvcc) "
+          f"and {native.SOURCE.name} (g++, {host_lib.name}) built side by side and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against plain
     matrix_rows, matrix_err = phase_matrix_kernel(device, card)
     topk_rows, topk_err, mismatches = phase_topk_kernel(device, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 1-3")
 
     # 4. hot path, 5. card against CPU
     frames = parity.stereo_frames(1 + N_WARMUP + N_FUSED_FRAMES, H, W, seed=0, step=STEP)
     hot_frames = frames[: 1 + N_WARMUP + N_FRAMES]
     hot_launches, hot_matrix, card_frame, last = phase_hot_path(device, hot_frames, card)
     phase_card_vs_cpu(hot_frames, card_frame, last)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 4-5")
 
     # 6. fused step, 7. card against CPU
     fused_launches, fused_matrix, kept = phase_fused_step(device, frames, card)
     phase_fused_card_vs_cpu(kept)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 6-7")
 
     # 8. tracker, 9. card against CPU
     t0 = time.perf_counter()
@@ -1311,12 +1611,14 @@ def main():
     tracker_launches, tracker_matrix, tracker_k2, tracker_log, tracker_ate = phase_tracker(
         device, seq, card)
     phase_tracker_card_vs_cpu(seq, tracker_log)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 8-9")
 
     # 10. system, 11. card against CPU, 12. mapping on its own thread
     system_launches, system_matrix, system_epi, system_log = phase_system(
         device, seq, card, tracker_ate)
     phase_system_card_vs_cpu(seq, system_log)
     phase_system_async(device, seq, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 10-12")
 
     # 13. stereo-inertial system, 14. its inertial programs card against CPU
     t0 = time.perf_counter()
@@ -1325,6 +1627,13 @@ def main():
           f"({len(seq_i.imu_t)} samples) in {time.perf_counter() - t0:.1f} s")
     inertial_launches, inertial_matrix, inertial_rec = phase_system_inertial(device, seq_i, card)
     phase_inertial_card_vs_cpu(inertial_rec)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 13-14")
+
+    # 15. BASELINE.md's toggle matrix on the tracker, 16. the inertial system under 0000
+    toggle_launches, toggle_matrix, _ = phase_toggle_matrix(device, seq, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 15")
+    host_i_launches, host_i_matrix = phase_system_inertial_host(device, seq_i, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16")
 
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
@@ -1337,12 +1646,14 @@ def main():
             "source": "fasttrack_tpu_torch/ops/csrc/hamming_topk.cu",
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
             "launches": hot_launches + fused_launches + tracker_launches + system_launches
-            + inertial_launches,
+            + inertial_launches + toggle_launches + host_i_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
             "launches_system": system_launches,
             "launches_system_inertial": inertial_launches,
+            "launches_toggle_matrix": toggle_launches,
+            "launches_system_inertial_mask_0000": host_i_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -1371,13 +1682,15 @@ def main():
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
             # the system paths alone launch it (map-point fusion)
             "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix
-            + inertial_matrix,
+            + inertial_matrix + toggle_matrix + host_i_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
             "launches_tracker": tracker_matrix,
             "launches_system": system_matrix,
             "launches_system_inertial": inertial_matrix,
+            "launches_toggle_matrix": toggle_matrix,
+            "launches_system_inertial_mask_0000": host_i_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -1391,7 +1704,7 @@ def main():
     ]}))
     check(inertial_launches > 0 and inertial_matrix > 0,
           "a kernel was not launched on the stereo-inertial path")
-    print(f"chip_smoke: all 14 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 16 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

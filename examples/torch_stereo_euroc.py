@@ -13,9 +13,9 @@ describe a rectified pinhole pair. --imu runs the stereo-inertial system on
 the sequence's mav0/imu0/data.csv with the settings' IMU block (the
 samples between consecutive frames go with the later one), and writes
 whether the IMU initialized into ate.json beside the ATE; without that file
-it exits with an error. The host sides of the offload toggles (any --mode
-other than 1111) are not ported yet: the script exits with the message of
-the NotImplementedError.
+it exits with an error. --mode is the reference's bitmask of offload
+toggles (ORB extraction, stereo matching, search local points, pose
+estimation; 1 = device, 0 = host) and --po 0 bypasses pose optimization.
 """
 
 import argparse
@@ -51,11 +51,6 @@ def main():
     kcfg = KernelConfig.from_bitmask(args.mode, pose_optimization=bool(args.po))
     sensor = Sensor.IMU_STEREO if args.imu else Sensor.STEREO
     try:
-        if args.mode != "1111":
-            raise NotImplementedError(
-                f"--mode {args.mode}: the host sides of the offload toggles are "
-                "not ported yet (ROADMAP M5c); only --mode 1111 runs"
-            )
         settings = load_settings(args.settings, device=args.device)
         seq = EurocSequence(args.sequence, args.timestamps)
         if args.imu and seq.imu is None:

@@ -11,10 +11,11 @@ each tracking stage:
 
 Port of fasttrack_tpu/kernels.py. Here the same ablation API selects between
 the device path (PyTorch and the CUDA kernels on the tensors' device) and a
-host (NumPy / native C++) path per stage. `poseOptimization=False` skips pose
-optimization inside TrackLocalMap, exactly like the reference. The host paths
-are not ported yet: the tracker reads the toggles and raises
-NotImplementedError for one that is off (ROADMAP M5c).
+host (NumPy / native C++) path per stage: `ops/host_kernels.py` over the
+port's native library (`native.py`), dispatched by the tracker. A toggle that
+is on never runs the host path and one that is off never runs the device's.
+`poseOptimization=False` skips pose optimization inside TrackLocalMap,
+exactly like the reference.
 
 Unlike the reference's process-global statics the toggles live in a small
 config object threaded through the System, so several systems can coexist;

@@ -582,9 +582,11 @@ class LocalMapper:
             p_w.append(pb)
             if i > 0:
                 preints.append(k.preintegrated)
-        # First init: acc bias pinned to zero (the reference's priorA=1e10
-        # first InitializeIMU call, LocalMapping.cc:181): over a 2 s window
-        # ba is degenerate with the gravity direction.
+        # First init: acc bias pinned to zero, as the JAX package does it.
+        # ORB-SLAM3's priorA=1e10 at its first InitializeIMU call is the
+        # monocular branch; for stereo it uses priorA=1e5, a strong but
+        # finite prior (LocalMapping.cc:181; ROADMAP F11). Kept for parity:
+        # over a 2 s window ba is nearly degenerate with gravity's direction.
         res = initialize_imu(R_wb, p_w, preints, mono_scale=False, estimate_ba=False)
         if not res.success:
             return

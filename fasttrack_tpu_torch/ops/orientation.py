@@ -26,6 +26,13 @@ def _circle_mask() -> np.ndarray:
     return (np.abs(dx) <= umax[dy + HALF_PATCH]).astype(np.float32)
 
 
+# The 31x31 moment window as NumPy constants: the host extractor
+# (ops/host_kernels.py) sums the moments over a raw-pyramid window with them.
+_MASK = _circle_mask()
+_D = np.arange(-HALF_PATCH, HALF_PATCH + 1, dtype=np.float32)
+_DY, _DX = np.meshgrid(_D, _D, indexing="ij")
+
+
 def _moment_weights(patch_size: int) -> np.ndarray:
     """(P*P, 2) weights: flat-patch inner product -> (m10, m01). The 31x31
     circular moment window is embedded centered in the P x P patch."""

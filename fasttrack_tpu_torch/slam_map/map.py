@@ -10,6 +10,7 @@ Port of fasttrack_tpu/slam_map/map.py (host code on NumPy).
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 import numpy as np
@@ -18,18 +19,32 @@ from fasttrack_tpu_torch.slam_map.keyframe import KeyFrame
 from fasttrack_tpu_torch.slam_map.mappoint import MapPoint
 
 
+_VERSIONS = itertools.count(1)   # PointStore.version values, shared by every store
+
+
 class PointStore:
     """Packed per-point arrays for one Map — the canonical storage of every
     numeric MapPoint field (see mappoint.py docstring). Rows are assigned on
     add_mappoint, freed on erase, reused from a free list; `alive` marks
     valid rows. The tracker's frustum and gather passes slice these arrays
     directly — one NumPy pass instead of a Python loop over objects
-    (the reference's per-frame OpenMP packing, SearchLocalPointsKernel.cu:368)."""
+    (the reference's per-frame OpenMP packing, SearchLocalPointsKernel.cu:368).
+
+    `version` changes after every write to a column the tracker mirrors on
+    the device (pos, desc_signed, normal, min_dist, max_dist) and after
+    every row take or free, never for the n_visible / n_found counters; it
+    is drawn from one process-wide sequence, so no two stores share a value
+    and the tracker keys its device mirror on it alone (ROADMAP P3)."""
 
     def __init__(self, cap: int = 4096):
         self._alloc(cap)
         self.n_rows = 0
         self.free: list[int] = []
+        self.touch()
+
+    def touch(self):
+        """Mark the mirrored columns changed (call after the write)."""
+        self.version = next(_VERSIONS)
 
     def _alloc(self, cap: int):
         self.cap = cap
@@ -57,11 +72,13 @@ class PointStore:
 
     def take_row(self) -> int:
         if self.free:
-            return self.free.pop()
-        if self.n_rows >= self.cap:
-            self._grow()
-        r = self.n_rows
-        self.n_rows += 1
+            r = self.free.pop()
+        else:
+            if self.n_rows >= self.cap:
+                self._grow()
+            r = self.n_rows
+            self.n_rows += 1
+        self.touch()
         return r
 
     def release_row(self, row: int):
@@ -72,6 +89,7 @@ class PointStore:
             self.n_visible[row] = 1
             self.n_found[row] = 1
             self.free.append(row)
+            self.touch()
 
 
 class Map:

@@ -72,6 +72,7 @@ class MapPoint:
         store.n_found[row] = self._n_found
         store.alive[row] = True
         store.mids[row] = self.mid
+        store.touch()
 
     def _unbind(self):
         if self._store is None:
@@ -101,6 +102,7 @@ class MapPoint:
             self._position = np.asarray(v, dtype=np.float64)
         else:
             self._store.pos[self.row] = v
+            self._store.touch()
 
     @property
     def normal(self) -> np.ndarray:
@@ -114,6 +116,7 @@ class MapPoint:
             self._normal = np.asarray(v, dtype=np.float64)
         else:
             self._store.normal[self.row] = v
+            self._store.touch()
 
     @property
     def desc_signed(self):
@@ -130,6 +133,7 @@ class MapPoint:
         elif v is not None:
             self._store.desc_signed[self.row] = v
             self._store.has_desc[self.row] = True
+            self._store.touch()
 
     @property
     def desc_packed(self):
@@ -158,6 +162,7 @@ class MapPoint:
             self._min_distance = float(v)
         else:
             self._store.min_dist[self.row] = v
+            self._store.touch()
 
     @property
     def max_distance(self) -> float:
@@ -171,6 +176,7 @@ class MapPoint:
             self._max_distance = float(v)
         else:
             self._store.max_dist[self.row] = v
+            self._store.touch()
 
     @property
     def n_visible(self) -> int:

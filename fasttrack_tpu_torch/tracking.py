@@ -29,12 +29,17 @@ RECENTLY_LOST, stores the inertial state on every keyframe, and resets a
 map that loses track before its IMU initialized.
 
 The five offload toggles (KernelConfig) are read where the reference
-branches on them. The host sides of the four offload toggles are not ported
-yet: a toggle that is off raises NotImplementedError (ROADMAP M5c);
-pose_optimization=False bypasses pose optimization in TrackLocalMap
-(Tracking.cc:3080-3106, the FastTrack ablation mode). The monocular, RGB-D
-and fisheye front ends raise NotImplementedError with their ROADMAP item
-(M9).
+branches on them: a toggle that is off runs its stage on the host
+(ops/host_kernels.py over the native library of native.py) and one that is
+on runs it on the device, never the other way round. ORB extraction and
+stereo matching route the frame through `_track_stereo_host` unless both
+are on; search_local_points and pose_estimation pick the local-map and the
+motion-model matcher; pose_optimization=False bypasses pose optimization in
+TrackLocalMap (Tracking.cc:3080-3106, the FastTrack ablation mode). Any
+toggle that is off keeps every frame stepwise. Pose optimization itself and
+the reference-keyframe matcher run on the device under every mask, as in
+the JAX package. The monocular, RGB-D and fisheye front ends raise
+NotImplementedError with their ROADMAP item (M9).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fasttrack_tpu_torch import convert
+from fasttrack_tpu_torch import convert, frame_pipeline
 from fasttrack_tpu_torch.cameras.host import (
     frustum_depth_ok,
     host_camera,
@@ -81,7 +86,8 @@ from fasttrack_tpu_torch.imu.preintegration import (
 from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.nputils import device_fetch
 from fasttrack_tpu_torch.nputils import orthonormalize as _orthonormalize
-from fasttrack_tpu_torch.ops.extractor import OrbConfig
+from fasttrack_tpu_torch.ops import host_kernels as hk
+from fasttrack_tpu_torch.ops.extractor import OrbConfig, extract_orb_pair_stacked
 from fasttrack_tpu_torch.ops.project_match import (
     TH_HIGH,
     tlm_match_packed,
@@ -283,10 +289,10 @@ class Tracker:
     def track_stereo(self, img_left, img_right, timestamp: float):
         t0 = time.perf_counter()
         if not (self.kcfg.orb_extraction and self.kcfg.stereo_match):
-            raise NotImplementedError(
-                "host ORB extraction and host stereo matching (orb_extraction / "
-                "stereo_match toggles off) are not ported yet (ROADMAP M5c)"
-            )
+            # At least one front-end stage runs on the host: the ablation
+            # modes of the reference's toggle matrix (ORBextractor.cc:1374,
+            # Frame.cc:156 CPU branches).
+            return self._track_stereo_host(img_left, img_right, timestamp, t0)
         # ONE uint8 host->device transfer for both cameras (the cast to
         # float32 happens on the device inside extraction).
         stacked = np.stack(
@@ -304,6 +310,62 @@ class Tracker:
             if out is not NotImplemented:
                 return out
         return self._track_frame(dispatch_stereo(), timestamp, t0)
+
+    def _track_stereo_host(self, img_left, img_right, timestamp: float, t0: float):
+        """Front end with per-stage host/device dispatch (the reference's
+        KernelController run-status branches). Extraction on the device
+        brings its keypoints and both raw pyramids to the host in one fetch;
+        stereo on the device takes the host keypoints and raw pyramids up
+        and fetches the depths."""
+        if self.kcfg.orb_extraction:
+            # float32, as the JAX package takes them here: a float image is
+            # not truncated to uint8 as on the all-device path
+            stacked = np.stack(
+                [np.asarray(img_left, np.float32), np.asarray(img_right, np.float32)]
+            )
+            kl_d, kr_d, pyr_l, pyr_r = extract_orb_pair_stacked(
+                torch.from_numpy(stacked).to(self.device), self.cfg
+            )
+            fields = hk.HostKeypoints._fields
+            got = device_fetch(*[getattr(k, f) for k in (kl_d, kr_d) for f in fields],
+                               pyr_l.raw, pyr_r.raw)
+            self.stats.record_count("device_fetches", 1)
+            n = len(fields)
+            kl, kr = hk.HostKeypoints(*got[:n]), hk.HostKeypoints(*got[n:2 * n])
+            raw_l, raw_r = got[2 * n:]
+        else:
+            kl, raw_l, _ = hk.host_extract_orb_with_pyramid(img_left, self.cfg)
+            kr, raw_r, _ = hk.host_extract_orb_with_pyramid(img_right, self.cfg)
+
+        if self.kcfg.stereo_match:
+            kl_t, kr_t = (convert.keypoints_from_numpy(
+                k.x, k.y, k.xl, k.yl, k.level, k.angle, k.score, k.desc_signed,
+                k.desc_packed, k.valid, device=self.device) for k in (kl, kr))
+            sm, _ = frame_pipeline._stereo_match_stage(
+                kl_t, kr_t, self._upload(raw_l, np.float32), self._upload(raw_r, np.float32),
+                self.cfg, self._bf_dev, self._minz_dev,
+            )
+            u_right, depth = device_fetch(sm.u_right, sm.depth)
+            self.stats.record_count("device_fetches", 1)
+        else:
+            u_right, depth = hk.host_match_rectified(
+                kl, kr, raw_l, raw_r, self._scale_factors, self.bf, self.baseline,
+            )
+
+        frame = TrackedFrame(
+            frame_id=self.frame_id,
+            timestamp=timestamp,
+            kp_uv=np.stack([kl.x, kl.y], -1),
+            kp_level=kl.level,
+            kp_angle=kl.angle,
+            desc_packed=kl.desc_packed,
+            desc_signed=kl.desc_signed,
+            u_right=u_right,
+            depth=depth,
+            valid=kl.valid,
+        )
+        self.stats.record("orb_extraction", (time.perf_counter() - t0) * 1e3)
+        return self._track_prepared(frame, t0)
 
     def track_rgbd(self, img, depth_map, timestamp: float):
         raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP M9)")
@@ -412,7 +474,7 @@ class Tracker:
     # -------------------------------------------------- fused one-sync path
     def _fused_eligible(self) -> bool:
         """The single-sync frame path (fused_track module) covers the normal
-        case: OK state, all device toggles on, local-map candidates cached
+        case: OK state, all five toggles on, local-map candidates cached
         from the previous frame; visual frames need the constant-velocity
         model, inertial frames an initialized IMU with the frame-to-frame
         anchor ready (prior + last-frame velocity) and no map change since
@@ -424,6 +486,7 @@ class Tracker:
             and not self.localization_only
             and self._tlm_cand_ids is not None
             and len(self._tlm_cand_ids) > 0
+            and self.kcfg.orb_extraction and self.kcfg.stereo_match
             and self.kcfg.search_local_points and self.kcfg.pose_estimation
             and self.kcfg.pose_optimization
             and self.last_frame is not None
@@ -446,11 +509,14 @@ class Tracker:
     def _store_device(self, m):
         """Device-resident PointStore mirror (the reference's persistent
         CudaMapPoint arrays, CudaFrame.cu:77-181 / KernelController.cu:18-22):
-        re-uploaded only when the map changed (BA write-back, loop
-        correction, new points: all bump change_index or grow the store);
-        between keyframes the fused path uploads row INDICES only."""
+        re-uploaded only when a mirrored column of the store changed, as its
+        `version` says (a row taken or freed, a point added, erased,
+        replaced or refreshed, BA write-back, the IMU-init rotation); between
+        keyframes the fused path uploads row INDICES only. The JAX package
+        keys its mirror on (map, change_index, n_rows, cap), which misses a
+        freed row reused before the next keyframe (ROADMAP P3)."""
         st = m.store
-        key = (id(m), m.change_index, st.n_rows, st.cap)
+        key = st.version
         if self._store_key != key:
             self._store_dev = convert.store_from_numpy(
                 st.pos, st.desc_signed, st.normal, st.min_dist, st.max_dist,
@@ -883,6 +949,14 @@ class Tracker:
         ok[sel] = m.store.has_desc[r]
         return pos, desc, ok
 
+    def _packed_for(self, mids: np.ndarray, m, okq: np.ndarray) -> np.ndarray:
+        """Packed uint8 descriptors for map-point ids (host matcher input)."""
+        rows = m.rows_for(mids)
+        sel = (rows >= 0) & okq
+        packed = np.zeros((len(mids), 32), np.uint8)
+        packed[sel] = m.store.desc_packed[rows[sel]]
+        return packed
+
     def _track_with_motion_model(self, frame: TrackedFrame) -> bool:
         """Tracking.cc:2911 + the PoseEstimationKernel device search.
         With an initialized IMU the prediction comes from PredictStateIMU
@@ -904,11 +978,6 @@ class Tracker:
         has_mp = last.mp_ids >= 0
         if has_mp.sum() < 10:
             return False
-        if not self.kcfg.pose_estimation:
-            raise NotImplementedError(
-                "the host motion-model matcher (pose_estimation toggle off) is "
-                "not ported yet (ROADMAP M5c)"
-            )
         mids = last.mp_ids.copy()
         pos, desc, okq = self._gather_map_points(mids, m)
         okq &= has_mp
@@ -923,29 +992,43 @@ class Tracker:
         lvl = last.kp_level
         lmin = np.maximum(lvl - 1, 0).astype(np.int32)
         lmax = np.minimum(lvl + 1, self.cfg.n_levels - 1).astype(np.int32)
-        kx, ky, kd, klvl, kvalid, kang = self._frame_device_arrays(frame)
-        desc_d = self._upload(desc, np.int8)
+        if self.kcfg.pose_estimation:
+            kx, ky, kd, klvl, kvalid, kang = self._frame_device_arrays(frame)
+            desc_d = self._upload(desc, np.int8)
+        else:
+            packed = self._packed_for(mids, m, okq)
         for widen in (1.0, 2.0):  # retry with doubled window (Tracking.cc:2964)
-            # per-kernel phase stats (the reference's REGISTER_STATS
-            # wrap/H2D/exec/D2H split, StereoMatchKernel.cu:636-706)
-            t_w = time.perf_counter()
-            q7 = np.stack([
-                u, v, radius * widen, lmin, lmax,
-                okq.astype(np.float64), last.kp_angle,
-            ]).astype(np.float32)
-            t_h = time.perf_counter()
-            q7_d = self._upload(q7, np.float32)
-            t_x = time.perf_counter()
-            idx, keep = twm_match_packed(q7_d, desc_d, kx, ky, kd, klvl, kvalid, kang)
-            t_d = time.perf_counter()
-            idx_np, keep_np = device_fetch(idx, keep)
-            t_e = time.perf_counter()
-            self.stats.record("twm_wrap", (t_h - t_w) * 1e3)
-            self.stats.record("twm_h2d", (t_x - t_h) * 1e3)
-            self.stats.record("twm_exec", (t_d - t_x) * 1e3)
-            self.stats.record("twm_d2h", (t_e - t_d) * 1e3)
-            self.stats.record("sync_ms", (t_e - t_d) * 1e3)
-            self.stats.record_count("device_fetches", 1)
+            if self.kcfg.pose_estimation:
+                # per-kernel phase stats (the reference's REGISTER_STATS
+                # wrap/H2D/exec/D2H split, StereoMatchKernel.cu:636-706)
+                t_w = time.perf_counter()
+                q7 = np.stack([
+                    u, v, radius * widen, lmin, lmax,
+                    okq.astype(np.float64), last.kp_angle,
+                ]).astype(np.float32)
+                t_h = time.perf_counter()
+                q7_d = self._upload(q7, np.float32)
+                t_x = time.perf_counter()
+                idx, keep = twm_match_packed(q7_d, desc_d, kx, ky, kd, klvl, kvalid, kang)
+                t_d = time.perf_counter()
+                idx_np, keep_np = device_fetch(idx, keep)
+                t_e = time.perf_counter()
+                self.stats.record("twm_wrap", (t_h - t_w) * 1e3)
+                self.stats.record("twm_h2d", (t_x - t_h) * 1e3)
+                self.stats.record("twm_exec", (t_d - t_x) * 1e3)
+                self.stats.record("twm_d2h", (t_e - t_d) * 1e3)
+                self.stats.record("sync_ms", (t_e - t_d) * 1e3)
+                self.stats.record_count("device_fetches", 1)
+            else:
+                # host path (ORBmatcher.cc:1992 CPU branch of the
+                # poseEstimation toggle)
+                idx_np, keep_np = hk.host_twm_match(
+                    np.stack([u, v], -1).astype(np.float32), packed,
+                    (radius * widen).astype(np.float32), lmin, lmax, okq,
+                    frame.kp_uv.astype(np.float32), frame.desc_packed,
+                    frame.kp_level.astype(np.int32), frame.valid,
+                    last.kp_angle, frame.kp_angle,
+                )
             n = int(keep_np.sum())
             if n >= 20:
                 break
@@ -1211,11 +1294,6 @@ class Tracker:
         j = len(rows)
         if j == 0:
             return self.n_inliers >= 30
-        if not self.kcfg.search_local_points:
-            raise NotImplementedError(
-                "the host local-map matcher (search_local_points toggle off) is "
-                "not ported yet (ROADMAP M5c)"
-            )
 
         R_wc, t_wc = frame.pose_wc()
         pos_j = st.pos[rows]
@@ -1262,27 +1340,40 @@ class Tracker:
         r_base[:j] = np.where(view_cos > 0.998, 2.5, 4.0)
         radius = r_base * self._scale_factors[levels]
         taken = frame.mp_ids >= 0
-        t_w = time.perf_counter()
-        q6 = np.stack([
-            u, v, radius, np.maximum(levels - 1, 0), levels,
-            okq.astype(np.float64),
-        ]).astype(np.float32)
-        kx, ky, kd, klvl, kvalid, _ = self._frame_device_arrays(frame)
-        t_h = time.perf_counter()
-        q6_d = self._upload(q6, np.float32)
-        desc_d = self._upload(desc, np.int8)
-        taken_d = self._upload(taken, np.float32)
-        t_x = time.perf_counter()
-        idx, keep = tlm_match_packed(q6_d, desc_d, kx, ky, kd, klvl, kvalid, taken_d)
-        t_d = time.perf_counter()
-        idx_np, keep_np = device_fetch(idx, keep)
-        t_e = time.perf_counter()
-        self.stats.record("slp_wrap", (t_h - t_w) * 1e3)
-        self.stats.record("slp_h2d", (t_x - t_h) * 1e3)
-        self.stats.record("slp_exec", (t_d - t_x) * 1e3)
-        self.stats.record("slp_d2h", (t_e - t_d) * 1e3)
-        self.stats.record("sync_ms", (t_e - t_d) * 1e3)
-        self.stats.record_count("device_fetches", 1)
+        if self.kcfg.search_local_points:
+            t_w = time.perf_counter()
+            q6 = np.stack([
+                u, v, radius, np.maximum(levels - 1, 0), levels,
+                okq.astype(np.float64),
+            ]).astype(np.float32)
+            kx, ky, kd, klvl, kvalid, _ = self._frame_device_arrays(frame)
+            t_h = time.perf_counter()
+            q6_d = self._upload(q6, np.float32)
+            desc_d = self._upload(desc, np.int8)
+            taken_d = self._upload(taken, np.float32)
+            t_x = time.perf_counter()
+            idx, keep = tlm_match_packed(q6_d, desc_d, kx, ky, kd, klvl, kvalid, taken_d)
+            t_d = time.perf_counter()
+            idx_np, keep_np = device_fetch(idx, keep)
+            t_e = time.perf_counter()
+            self.stats.record("slp_wrap", (t_h - t_w) * 1e3)
+            self.stats.record("slp_h2d", (t_x - t_h) * 1e3)
+            self.stats.record("slp_exec", (t_d - t_x) * 1e3)
+            self.stats.record("slp_d2h", (t_e - t_d) * 1e3)
+            self.stats.record("sync_ms", (t_e - t_d) * 1e3)
+            self.stats.record_count("device_fetches", 1)
+        else:
+            # host path (ORBmatcher.cc:227 CPU branch of the
+            # searchLocalPoints toggle)
+            packed = self._packed_for(mids_arr, m, okq)
+            idx_np, keep_np = hk.host_tlm_match(
+                np.stack([u, v], -1).astype(np.float32), packed,
+                radius.astype(np.float32),
+                np.maximum(levels - 1, 0).astype(np.int32),
+                levels.astype(np.int32), okq,
+                frame.kp_uv.astype(np.float32), frame.desc_packed,
+                frame.kp_level.astype(np.int32), frame.valid, taken,
+            )
         frame.mp_ids[idx_np[keep_np]] = mids_arr[keep_np]
 
         # Pose optimization, bypassed when the toggle is off

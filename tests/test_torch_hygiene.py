@@ -78,10 +78,10 @@ def test_package_has_the_slice_modules():
         "cameras/stereo.py", "optim/ba_core.py", "optim/local_ba.py", "ba_assembly.py",
         "ops/host_kernels.py", "local_mapping.py", "settings.py", "datasets/loaders.py",
         "system.py", "imu/__init__.py", "imu/preintegration.py", "imu/init.py",
-        "optim/inertial.py",
+        "optim/inertial.py", "native.py",
     ):
         assert m in names, m
-    for source in ("hamming_penalty.cu", "hamming_topk.cu"):
+    for source in ("hamming_penalty.cu", "hamming_topk.cu", "fasttrack_native.cpp"):
         assert (PACKAGE / "ops" / "csrc" / source).is_file()
 
 

@@ -594,8 +594,8 @@ def test_mapper_stats_agree_with_the_map(mapped):
 
 
 def test_no_fused_frame_reads_a_freed_or_reused_store_row(mapped):
-    """The device mirror of the point store is uploaded when (map, change
-    index, rows in use, capacity) changes. The mapper frees rows (culls,
+    """The device mirror of the point store is uploaded when the store's
+    version changes (ROADMAP P3). The mapper frees rows (culls,
     fusion, outliers of the adjustment), new points reuse them, the
     adjustment moves points and fusion refreshes descriptors: on every fused
     frame of this run the rows the frame used held, on the device, exactly

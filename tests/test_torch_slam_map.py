@@ -222,3 +222,91 @@ def test_clear_and_atlas(pkg):
     atlas.remove_map(m1)
     assert atlas.maps == [m0]
     assert atlas.add_camera("cam") == "cam" and atlas.add_camera("cam") and atlas.cameras == ["cam"]
+
+
+# ------------------------------------------- the store's version (ROADMAP P3)
+def _versioned_map():
+    """A port map of two keyframes and 12 points; kf1 sees the first 6."""
+    rng = np.random.default_rng(4)
+    atlas = tmap.Atlas()
+    m = atlas.current
+    kfs = [make_kf(tmap, atlas, rng) for _ in range(2)]
+    for kf in kfs:
+        m.add_keyframe(kf)
+    for i in range(12):
+        add_point(tmap, atlas, m, kfs[0], i, rng)
+    for i in range(6):
+        mid = int(kfs[0].mp_ids[i])
+        m.mappoints[mid].add_observation(kfs[1].kid, i)
+        kfs[1].mp_ids[i] = mid
+    return atlas, m, kfs, rng
+
+
+def _mid(kfs, i):
+    return int(kfs[0].mp_ids[i])
+
+
+def _write_back(atlas, m, kfs, rng):
+    from fasttrack_tpu_torch import ba_assembly
+
+    mids = [_mid(kfs, i) for i in range(4)]
+    meta = ba_assembly.WindowMeta({kfs[0].kid: 0}, mids, np.zeros(1, bool),
+                                  np.zeros((4, 1), bool))
+    res = {"R": kfs[0].R_cw[None], "t": kfs[0].t_cw[None],
+           "points": rng.normal(size=(4, 3)), "inlier_mask": np.ones((4, 1), bool)}
+    ba_assembly.write_back(m, meta, res)
+
+
+# name -> (what runs before the version is read, the write)
+MAP_WRITERS = {
+    "add_mappoint_new_row": (None, lambda a, m, k, r: add_point(tmap, a, m, k[1], 20, r)),
+    "add_mappoint_reused_row": (
+        lambda a, m, k, r: m.erase_mappoint(_mid(k, 7)),
+        lambda a, m, k, r: add_point(tmap, a, m, k[1], 21, r)),
+    "erase_mappoint": (None, lambda a, m, k, r: m.erase_mappoint(_mid(k, 8))),
+    "replace_mappoint": (None, lambda a, m, k, r: m.replace_mappoint(_mid(k, 9), _mid(k, 10))),
+    "refresh_mappoint": (None, lambda a, m, k, r: m.refresh_mappoint(
+        m.mappoints[_mid(k, 0)], 1.2, 4)),
+    "release_mappoint": (None, lambda a, m, k, r: m.release_mappoint(_mid(k, 11))),
+    "clear": (None, lambda a, m, k, r: m.clear()),
+    "apply_scaled_rotation": (None, lambda a, m, k, r: m.apply_scaled_rotation(np.eye(3), 1.5)),
+    "bundle_adjustment_write_back": (None, _write_back),
+    "position": (None, lambda a, m, k, r: setattr(m.mappoints[_mid(k, 1)], "position", r.normal(size=3))),
+    "normal": (None, lambda a, m, k, r: setattr(m.mappoints[_mid(k, 1)], "normal", [0.0, 0.0, 1.0])),
+    "desc_signed": (None, lambda a, m, k, r: setattr(
+        m.mappoints[_mid(k, 1)], "desc_signed", -k[0].desc_signed[1])),
+    "min_distance": (None, lambda a, m, k, r: setattr(m.mappoints[_mid(k, 1)], "min_distance", 0.5)),
+    "max_distance": (None, lambda a, m, k, r: setattr(m.mappoints[_mid(k, 1)], "max_distance", 9.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAP_WRITERS))
+def test_every_write_to_a_mirrored_column_moves_the_store_version(name):
+    atlas, m, kfs, rng = _versioned_map()
+    prep, write = MAP_WRITERS[name]
+    if prep is not None:
+        prep(atlas, m, kfs, rng)
+    n_rows, free = m.store.n_rows, list(m.store.free)
+    before = m.store.version
+    write(atlas, m, kfs, rng)
+    assert m.store.version != before
+    if name == "add_mappoint_reused_row":      # the case the old key missed
+        assert free and m.store.n_rows == n_rows and m.change_index == 0
+
+
+def test_the_counters_do_not_move_the_store_version():
+    """The tracker bumps n_found and n_visible every frame; the mirror does
+    not hold them, so they must not cost an upload."""
+    atlas, m, kfs, rng = _versioned_map()
+    before = m.store.version
+    mp = m.mappoints[_mid(kfs, 2)]
+    mp.n_found = mp.n_found + 3
+    mp.n_visible += 5
+    rows = m.rows_for(kfs[0].mp_ids)
+    m.store.n_found[rows] += 1
+    m.store.n_visible[rows] += 1
+    m.update_connections(kfs[1])
+    m.info_changed()
+    assert m.store.version == before
+    other = tmap.Atlas().current.store
+    assert other.version != before             # versions are unique across stores

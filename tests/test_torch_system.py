@@ -25,6 +25,7 @@ import torch
 
 from fasttrack_tpu import native as jnative
 from fasttrack_tpu.cameras import make_pinhole as jax_make_pinhole
+from fasttrack_tpu.kernels import KernelConfig as JaxKernelConfig
 from fasttrack_tpu.settings import Settings as JaxSettings
 from fasttrack_tpu.system import Sensor as JaxSensor
 from fasttrack_tpu.system import System as JaxSystem
@@ -35,6 +36,7 @@ from fasttrack_tpu_torch.evaluation import ate
 from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.system import Sensor, System
+from tests.test_torch_host_kernels import jax_native_library
 
 H, W = 240, 320
 N_FRAMES = 60
@@ -301,13 +303,36 @@ def test_run_mode_is_the_systems_default():
     assert kernels.get_run_mode() == KernelConfig()
 
 
-def test_a_toggle_that_is_off_raises_at_the_first_frame(ran):
+def test_a_toggle_that_is_off_raises_at_the_first_frame(ran, tmp_path):
+    """Mask 0111 (host ORB extraction; it raised at the first frame until
+    the host sides were ported) through both systems over the first 8
+    frames, inline mapping: every frame stepwise and OK, the same keyframes,
+    poses within 2e-3. The JAX host kernels load the JAX package's own C++
+    library, built into tmp_path (tests/test_torch_host_kernels.py), so
+    nothing builds under `native/`."""
     seq, _, _, _, _ = ran
-    _, ts = settings_pair(seq)
-    system = System(ts, kernel_config=KernelConfig.from_bitmask("0111"), vocabulary=False,
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="M5c"):
-        system.track_stereo(seq.frames[0].left, seq.frames[0].right, 0.0)
+    js, ts = settings_pair(seq)
+    jsys = JaxSystem(js, JaxSensor.STEREO, kernel_config=JaxKernelConfig.from_bitmask("0111"),
+                     vocabulary=False)
+    tsys = System(ts, kernel_config=KernelConfig.from_bitmask("0111"), vocabulary=False,
+                  device="cpu")
+    with one_torch_thread(), jax_native_library(tmp_path):
+        for i, f in enumerate(seq.frames[:8]):
+            jsys.track_stereo(f.left, f.right, f.timestamp)
+            tsys.track_stereo(f.left, f.right, f.timestamp)
+            rj, rt = frame_row(jsys), frame_row(tsys)
+            assert (rt["state"], rt["stepwise"], rt["n_keyframes"]) == (
+                rj["state"], rj["stepwise"], rj["n_keyframes"])
+            assert (rt["state"], rt["stepwise"]) == ("OK", i + 1)
+            assert abs(rt["n_mappoints"] - rj["n_mappoints"]) <= 0.02 * rj["n_mappoints"], i
+            assert np.abs(rt["R"] - rj["R"]).max() < POSE_ATOL, i
+            assert np.abs(rt["t"] - rj["t"]).max() < POSE_ATOL, i
+    jsys.shutdown()
+    tsys.shutdown()
+    np.testing.assert_array_equal(tsys.tracker.last_frame.desc_packed,
+                                  jsys.tracker.last_frame.desc_packed)
+    assert "fused_dispatch" not in tsys.stats.series
+    assert sum(tsys.stats.series["lm_keyframes"]) >= 1
 
 
 def test_async_mapping_drains_its_queue(ran):

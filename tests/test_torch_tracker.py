@@ -14,7 +14,21 @@ device="cpu". Tolerances and why:
   rounding through two 40-step optimizations per frame, analytic against
   forward-mode Jacobians; ATE RMSE of the port no worse than JAX's + 5 mm;
 - datasets.synthetic: images and ground truth bit-equal; evaluation.ate:
-  1e-12.
+  1e-12;
+- the host sides of the offload toggles, over the same 20 frames under the
+  masks of the JAX package's TestToggleMatrixE2E (0000, 1000, 0100, 0011)
+  and 0000 with pose optimization bypassed: every frame stepwise, states,
+  paths and keyframes equal; bindings equal on every frame where the front
+  end is the host's or the host extraction feeds the device stereo (the
+  frames are bit-equal there: NumPy over the same C++ source); under 1000
+  (device extraction, host stereo and matchers) the (keypoint, map point)
+  pairs compared as sets, >= 95% shared (F4); poses within 1e-3; ATE no
+  worse than JAX's + 5 mm. The JAX side loads its own C++ source, built
+  into a temporary directory (tests/test_torch_host_kernels.py,
+  `jax_native_library`), so no test here builds under `native/`;
+- the map's device mirror: after a point is erased and a new one takes its
+  row, `_store_device` uploads again and equals the host store (ROADMAP
+  P3; the JAX tracker's key misses this).
 """
 
 import contextlib
@@ -24,6 +38,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from fasttrack_tpu import native as jnative
 from fasttrack_tpu import tracking as jtracking
 from fasttrack_tpu.cameras import make_pinhole as jax_make_pinhole
 from fasttrack_tpu.datasets import synthetic as jsynthetic
@@ -41,7 +56,8 @@ from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.ops import project_match as tpm
 from fasttrack_tpu_torch.ops import stereo_match as tsm
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
-from fasttrack_tpu_torch.slam_map import Atlas
+from fasttrack_tpu_torch.slam_map import Atlas, MapPoint
+from tests.test_torch_host_kernels import jax_native_library
 
 H, W = 240, 320
 N_FEATURES, N_LEVELS = 512, 4
@@ -191,17 +207,23 @@ def test_ate_equals_jax(rng):
 
 
 # ------------------------------------------------------------- the trackers
-def make_trackers(seq, **kwargs):
-    """(JAX Tracker, port Tracker on the CPU) for `seq`'s camera."""
+def make_trackers(seq, mode=None, **kwargs):
+    """(JAX Tracker, port Tracker on the CPU) for `seq`'s camera; `mode` =
+    (bitmask, pose_optimization) gives each its package's KernelConfig."""
     bf = seq.fx * seq.baseline
+    jk, tk = {}, {}
+    if mode is not None:
+        jk = dict(kernel_config=JaxKernelConfig.from_bitmask(mode[0], pose_optimization=mode[1]))
+        tk = dict(kernel_config=KernelConfig.from_bitmask(mode[0], pose_optimization=mode[1]))
     jt = jtracking.Tracker(
         jax_make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H),
-        JaxOrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS), bf, JaxAtlas(), **kwargs,
+        JaxOrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS), bf, JaxAtlas(),
+        **jk, **kwargs,
     )
     tt = tracking.Tracker(
         make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device="cpu"),
         OrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS), bf, Atlas(),
-        device="cpu", **kwargs,
+        device="cpu", **tk, **kwargs,
     )
     return jt, tt
 
@@ -240,8 +262,8 @@ def one_torch_thread():
         torch.set_num_threads(n)
 
 
-def run_both(seq, frames, **kwargs):
-    jt, tt = make_trackers(seq, **kwargs)
+def run_both(seq, frames, mode=None, **kwargs):
+    jt, tt = make_trackers(seq, mode, **kwargs)
     log_j = [step(jt, f.left, f.right, f.timestamp) for f in frames]
     with one_torch_thread():
         log_t = [step(tt, f.left, f.right, f.timestamp) for f in frames]
@@ -418,6 +440,108 @@ def test_bypass_pose_optimization_equals_jax(seq):
         assert np.linalg.norm(a["t"] - b["t"]) < POSE_ATOL
 
 
+# ------------------------------------------------ the offload toggles' host sides
+@pytest.fixture(scope="module")
+def jax_host_kernels(tmp_path_factory):
+    """The JAX host kernels over the JAX package's own C++ library, built
+    into a temporary directory and not by `make` in `native/`, which races
+    between test workers (ROADMAP)."""
+    with jax_native_library(tmp_path_factory.mktemp("jax_native")):
+        yield
+
+
+# (mask, pose optimization): TestToggleMatrixE2E's masks, and 0000 bypassing PO
+MODES = [("0000", True), ("1000", True), ("0100", True), ("0011", True), ("0000", False)]
+
+
+@pytest.fixture(scope="module", params=MODES, ids=lambda m: f"{m[0]}_po{int(m[1])}")
+def masked(request, seq, jax_host_kernels):
+    return request.param, run_both(seq, seq.frames, request.param)
+
+
+def _pairs(r):
+    """The (keypoint, map point) bindings of a frame, as a set."""
+    i = np.where(r["mp_ids"] >= 0)[0]
+    return set(zip(i.tolist(), r["mp_ids"][i].tolist()))
+
+
+def test_mask_states_paths_keyframes_and_series_equal(masked):
+    (mask, po), (jt, tt, log_j, log_t) = masked
+    for key in ("state", "path", "n_keyframes", "n_mappoints"):
+        assert [r[key] for r in log_t] == [r[key] for r in log_j], key
+    assert [r["state"] for r in log_t] == ["OK"] * 20
+    assert [r["path"] for r in log_t] == ["stepwise"] * 20     # a toggle off: never fused
+    for name in HOST_PATH_SERIES:
+        assert len(tt.stats.series.get(name, [])) == len(jt.stats.series.get(name, [])), name
+    assert len(tt.stats.series["orb_extraction"]) == 20
+    assert "fused_dispatch" not in tt.stats.series and "store_uploads" not in tt.stats.series
+    # a matcher toggle that is off never runs the device's matcher
+    assert ("twm_exec" in tt.stats.series) == (mask[3] == "1")
+    assert ("slp_exec" in tt.stats.series) == (mask[2] == "1")
+
+
+def test_mask_bindings_equal(masked):
+    (mask, po), (jt, tt, log_j, log_t) = masked
+    if mask[0] == "0":
+        # the host front end gives both packages the same frame, bit for bit
+        fj, ft = jt.last_frame, tt.last_frame
+        for name in ("kp_uv", "kp_level", "kp_angle", "desc_packed", "desc_signed", "valid"):
+            np.testing.assert_array_equal(getattr(ft, name), getattr(fj, name), err_msg=name)
+        for i, (a, b) in enumerate(zip(log_t, log_j)):
+            np.testing.assert_array_equal(a["mp_ids"], b["mp_ids"], err_msg=f"frame {i}")
+    else:
+        for i, (a, b) in enumerate(zip(log_t, log_j)):
+            pa, pb = _pairs(a), _pairs(b)
+            assert len(pa & pb) >= MIN_IDS_EQUAL_LATE * len(pa | pb), (i, len(pa & pb), len(pa | pb))
+    assert all((r["mp_ids"] >= 0).sum() >= 100 for r in log_t)
+
+
+def test_mask_poses_within_tolerance(masked):
+    _, (_, _, log_j, log_t) = masked
+    for i, (a, b) in enumerate(zip(log_t, log_j)):
+        assert np.linalg.norm(a["R"] - b["R"]) < POSE_ATOL, i
+        assert np.linalg.norm(a["t"] - b["t"]) < POSE_ATOL, i
+
+
+def test_mask_ate_no_worse_than_jax(masked, seq):
+    (mask, po), (jt, tt, _, _) = masked
+
+    def rmse(tracker):
+        t_est = np.asarray([t for t, _, _ in tracker.trajectory])
+        p_est = np.asarray([-R.T @ t_ for _, R, t_ in tracker.trajectory])
+        return ate.absolute_trajectory_error(t_est, p_est, seq.gt_t, seq.gt_pos)["rmse"]
+
+    assert len(tt.trajectory) == len(jt.trajectory) == 20
+    assert rmse(tt) <= rmse(jt) + ATE_MARGIN_M
+    assert rmse(tt) < 0.05
+
+
+def test_store_mirror_follows_a_reused_row(seq):
+    """ROADMAP P3: upload the mirror, erase a point, add one that takes the
+    freed row; the next `_store_device` must hold the new point's row. The
+    old key (map, change_index, n_rows, cap) did not move, so the mirror
+    kept the erased point's position and descriptor."""
+    tt = make_trackers(seq)[1]
+    f = seq.frames[0]
+    tt.track_stereo(f.left, f.right, f.timestamp)
+    m = tt.atlas.current
+    st = m.store
+    first = tt._store_device(m)
+    assert tt._store_device(m) is first        # nothing changed: no upload
+    victim = int(tt.last_frame.mp_ids[tt.last_frame.mp_ids >= 0][5])
+    row = m.mappoints[victim].row
+    before = (m.change_index, st.n_rows, st.cap)
+    m.erase_mappoint(victim)
+    mp = MapPoint(tt.atlas.next_mp_id(), st.pos[row] + 0.5, 0, 0)
+    mp.desc_signed = -st.desc_signed[row]
+    m.add_mappoint(mp)
+    assert mp.row == row and (m.change_index, st.n_rows, st.cap) == before
+    mirror = tt._store_device(m)
+    np.testing.assert_array_equal(mirror.pos.numpy(), st.pos.astype(np.float32))
+    np.testing.assert_array_equal(mirror.desc.numpy(), st.desc_signed)
+    assert len(tt.stats.series["store_uploads"]) == 2
+
+
 # ---------------------------------------------------------- what is left out
 def _cpu_tracker(seq, **kwargs):
     return make_trackers(seq, **kwargs)[1]
@@ -459,17 +583,39 @@ def test_left_out_entry_points_raise(call, item):
         call(tr, np.zeros((H, W), np.uint8))
 
 
-@pytest.mark.parametrize("mask, n_ok", [("0111", 0), ("1011", 0), ("1101", 1), ("1110", 2)])
-def test_toggle_off_raises_where_its_host_path_would_run(seq, mask, n_ok):
-    """An offload toggle that is off raises at the frame whose host path it
-    selects: extraction and stereo at once, the local-map matcher at the
-    first tracked frame, the motion-model matcher at the second."""
-    tr = _cpu_tracker(seq, kernel_config=KernelConfig.from_bitmask(mask))
-    f = seq.frames
-    for i in range(n_ok):
-        tr.track_stereo(f[i].left, f[i].right, f[i].timestamp)
-    with pytest.raises(NotImplementedError, match="M5c"):
-        tr.track_stereo(f[n_ok].left, f[n_ok].right, f[n_ok].timestamp)
+HOST_PATH_SERIES = ("orb_extraction", "tracking_total", "twm", "tlm", "trk")
+
+
+@pytest.mark.parametrize("mask, n_ok, present, absent", [
+    ("0111", 0, ["device_fetches"], []),              # host extraction, device stereo
+    ("1011", 0, ["device_fetches"], []),              # device extraction, host stereo
+    ("1101", 1, ["trk", "tlm"], ["slp_exec"]),        # the local-map matcher
+    ("1110", 2, ["twm", "tlm", "slp_exec"], ["twm_exec"]),   # the motion-model matcher
+])
+def test_toggle_off_raises_where_its_host_path_would_run(seq, jax_host_kernels, mask, n_ok,
+                                                         present, absent):
+    """Frame `n_ok` is where an offload toggle that is off first selects its
+    host path (it raised there until the host sides were ported): extraction
+    and stereo at frame 0, the local-map matcher at the first tracked frame,
+    the motion-model matcher at the second. Now the frame runs that path: it
+    records the series of the stages it ran and none of the device matcher
+    it skipped, like the JAX tracker's, and binds what the JAX tracker
+    binds."""
+    jt, tt = make_trackers(seq, (mask, True))
+    frames = seq.frames[:n_ok + 1]
+    rows_j = [step(jt, f.left, f.right, f.timestamp) for f in frames]
+    rows_t = [step(tt, f.left, f.right, f.timestamp) for f in frames]
+    series = tt.stats.series
+    for name in absent:
+        assert name not in series and name not in jt.stats.series, name
+    for name in ["orb_extraction", "tracking_total"] + present:
+        assert len(series[name]) >= 1, name
+    for name in HOST_PATH_SERIES:
+        assert len(series.get(name, [])) == len(jt.stats.series.get(name, [])), name
+    assert [r["state"] for r in rows_t] == [r["state"] for r in rows_j] == ["OK"] * (n_ok + 1)
+    assert [r["path"] for r in rows_t] == ["stepwise"] * (n_ok + 1)
+    np.testing.assert_array_equal(rows_t[-1]["mp_ids"], rows_j[-1]["mp_ids"])
+    assert (rows_t[-1]["mp_ids"] >= 0).sum() >= 100
 
 
 def test_relocalization_without_a_database_is_false_and_with_one_raises(seq):
