@@ -8,8 +8,11 @@ Usage:
       [--mode 1111] [--po 1] [--out results/] [--gt GT] [--async-mapping] \
       [--device cuda:0|cpu]
 
-Runs on the CUDA device unless --device says otherwise. The settings must
-describe a rectified pinhole pair. --imu runs the stereo-inertial system on
+Runs on the CUDA device unless --device says otherwise, with the shipped
+vocabulary (loop closing and relocalization), as the JAX example does;
+with --imu or --async-mapping it runs without place recognition and says
+so on stderr (ROADMAP M7b). The settings must describe a rectified pinhole
+pair. --imu runs the stereo-inertial system on
 the sequence's mav0/imu0/data.csv with the settings' IMU block (the
 samples between consecutive frames go with the later one), and writes
 whether the IMU initialized into ate.json beside the ATE; without that file
@@ -55,10 +58,16 @@ def main():
         seq = EurocSequence(args.sequence, args.timestamps)
         if args.imu and seq.imu is None:
             sys.exit(f"--imu: {args.sequence} has no mav0/imu0/data.csv")
-        # vocabulary=False: tracking + local mapping; place recognition is
-        # not ported yet (ROADMAP M7)
+        # the default vocabulary (place recognition on), as the JAX example;
+        # inertial loop closing and the loop-closer threads are not ported
+        # yet (ROADMAP M7b), so --imu and --async-mapping run without it
+        vocabulary = None
+        if args.imu or args.async_mapping:
+            vocabulary = False
+            print("--imu / --async-mapping: no place recognition (vocabulary=False) until "
+                  "ROADMAP M7b", file=sys.stderr)
         system = System(settings, sensor, kernel_config=kcfg,
-                        async_mapping=args.async_mapping, vocabulary=False,
+                        async_mapping=args.async_mapping, vocabulary=vocabulary,
                         device=args.device)
     except NotImplementedError as e:
         sys.exit(str(e))

@@ -254,3 +254,87 @@ def generate_sequence(
         gt_pos=np.asarray(gt_pos),
         gt_R=np.asarray(gt_R),
     )
+
+
+# A drifted loop for the loop closer: tests/test_gba_merge.py's
+# TestLoopClosureE2E scene, built with NumPy and the map types of the
+# `slam_map` module given (this package's, or the JAX package's in the parity
+# tests), and with each map point's viewing normal and distance band as the
+# mapper sets them, so that the loop fusion's projection gate admits points.
+LOOP_W, LOOP_H, LOOP_FX = 640, 480, 400.0
+
+
+def _loop_leg(slam_map, atlas, pts_w, descs, n_kf, kf_x0=0.0, world_T=None, max_per_kf=256,
+              scale_factor=1.2, n_levels=8):
+    """A straight leg of keyframes 0.4 apart along x, looking down +z at the
+    point cloud, with one map point per cloud point it sees; `world_T`
+    (R_mw, t_mw) puts the leg and its points in a frame drifted from the
+    world's (the return leg's accumulated drift, with its own duplicate
+    points)."""
+    m = atlas.current
+    packed = np.packbits((descs > 0).astype(np.uint8), axis=1)
+    kfs, mps = [], {}
+    for k in range(n_kf):
+        t_wc = np.array([kf_x0 + 0.4 * k, 0.0, 0.0])
+        Xc = pts_w - t_wc
+        uv = np.stack([LOOP_FX * Xc[:, 0] / Xc[:, 2] + LOOP_W / 2,
+                       LOOP_FX * Xc[:, 1] / Xc[:, 2] + LOOP_H / 2], -1)
+        vis = ((Xc[:, 2] > 1.0) & (uv[:, 0] > 10) & (uv[:, 0] < LOOP_W - 10)
+               & (uv[:, 1] > 10) & (uv[:, 1] < LOOP_H - 10))
+        idxs = np.where(vis)[0][:max_per_kf]
+        n = len(idxs)
+        R_cm, t_cm = np.eye(3), -t_wc
+        if world_T is not None:
+            R_mw, t_mw = world_T
+            R_cm, t_cm = R_cm @ R_mw.T, R_cm @ (-R_mw.T @ t_mw) - t_wc
+        kid = atlas.next_kf_id()
+        kf = slam_map.KeyFrame(
+            kid, kid, float(k), R_cm, t_cm, uv[idxs].astype(np.float32),
+            np.zeros(n, np.int32), np.zeros(n, np.float32), packed[idxs],
+            descs[idxs].astype(np.int8), np.full(n, -1.0, np.float32),
+            np.full(n, -1.0, np.float32), np.ones(n, bool),
+        )
+        m.add_keyframe(kf)
+        for fi, pi in enumerate(idxs):
+            pid = int(pi)
+            if pid not in mps:
+                X = pts_w[pid] if world_T is None else world_T[0] @ pts_w[pid] + world_T[1]
+                mp = slam_map.MapPoint(atlas.next_mp_id(), X, kid, kid)
+                mp.desc_signed = descs[pid].astype(np.int8)
+                mp.desc_packed = packed[pid]
+                m.add_mappoint(mp)
+                mps[pid] = mp
+            mps[pid].add_observation(kid, fi)
+            kf.mp_ids[fi] = mps[pid].mid
+        kfs.append(kf)
+    for mp in mps.values():
+        mp.update_normal_and_depth(
+            {k: m.keyframes[k].center for k in mp.observations},
+            m.keyframes[mp.ref_kf_id].center, 0, scale_factor, n_levels)
+    for kf in kfs:
+        m.update_connections(kf)
+    return kfs
+
+
+def drifted_loop_scene(slam_map, seed=0):
+    """(atlas, outbound keyframes, return keyframes, descriptors, drift): an
+    outbound leg of 6 keyframes with clean poses over a 300-point cloud, and
+    a return leg of 3 keyframes over the same places whose poses and points
+    carry a drift of 0.06 rad and (0.25, -0.15, 0.1); `drift(kfs)` is the
+    largest distance of the return leg's camera centres from the truth."""
+    rng = np.random.default_rng(seed)
+    pts_w = np.stack([rng.uniform(-3, 3, 300), rng.uniform(-2, 2, 300),
+                      rng.uniform(5, 9, 300)], -1)
+    descs = 2 * rng.integers(0, 2, size=(300, 256)).astype(np.uint8).astype(np.int8) - 1
+    atlas = slam_map.Atlas()
+    out = _loop_leg(slam_map, atlas, pts_w, descs, 6)
+    th = 0.06
+    Rd = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+    back = _loop_leg(slam_map, atlas, pts_w, descs, 3, kf_x0=0.4,
+                     world_T=(Rd, np.array([0.25, -0.15, 0.1])))
+
+    def drift(kfs):
+        return max(np.linalg.norm(kf.center - np.array([0.4 + 0.4 * k, 0, 0]))
+                   for k, kf in enumerate(kfs))
+
+    return atlas, out, back, descs, drift

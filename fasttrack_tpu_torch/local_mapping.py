@@ -24,10 +24,13 @@ IMU once the temporal keyframe chain spans 6 keyframes over 2 s
 4 fixed anchor keyframes + 8 + 1 states, 1024 points) instead of the visual
 one, the full inertial BA stages 5 s and 15 s after initialization (the
 chain swept in overlapping windows), and the inertial keyframe-cull rules.
-The inertial window is solved in `INERTIAL_SOLVE_DTYPE`. Left out, each
+The inertial window is solved in `INERTIAL_SOLVE_DTYPE`.
+
+With a `loop_closer` (loop_closing.LoopCloser) the mapper hands it every
+keyframe it has processed, inline, as the JAX package does. Left out, each
 raising NotImplementedError with its ROADMAP item: `monocular` with its
-scale refinement (M9), `loop_closer` and the converged full inertial BA it
-calls (M7), `mesh` (M10).
+scale refinement (M9), a loop closer on the mapper's thread and the
+converged full inertial BA of the post-loop global BA (M7b), `mesh` (M10).
 """
 
 from __future__ import annotations
@@ -113,8 +116,10 @@ class LocalMapper:
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
         if monocular:
             raise NotImplementedError("monocular mapping is not ported yet (ROADMAP M9)")
-        if loop_closer is not None:
-            raise NotImplementedError("loop closing is not ported yet (ROADMAP M7)")
+        if loop_closer is not None and run_async:
+            raise NotImplementedError(
+                "loop closing on the mapping thread is not ported yet (ROADMAP M7b)"
+            )
         if mesh is not None:
             raise NotImplementedError(
                 "bundle adjustment sharded over a device mesh is not ported yet (ROADMAP M10)"
@@ -128,7 +133,7 @@ class LocalMapper:
         self.scale_factor = scale_factor
         self.n_levels = n_levels
         self.inv_sigma2 = 1.0 / (scale_factor ** (2 * np.arange(n_levels)))
-        self.loop_closer = None
+        self.loop_closer = loop_closer
         self.imu_calib = imu_calib          # enables the inertial back-end
         self.imu_init_kfs = 6               # KFs needed before InitializeIMU
         self.imu_init_time = None           # timestamp of InitializeIMU
@@ -222,6 +227,8 @@ class LocalMapper:
                 m.iniertial_ba2 = True
         self.stats.record_count("lm_keyframes", 1)
         self.stats.record("lm_total", (time.perf_counter() - t0) * 1e3)
+        if self.loop_closer is not None and kf.kid in m.keyframes:
+            self._timed("lc_keyframe", self.loop_closer.insert_keyframe, kf)
 
     def _track_new_points(self, kf: KeyFrame):
         """LocalMapping::ProcessNewKeyFrame (LocalMapping.cc:298): register
@@ -646,7 +653,7 @@ class LocalMapper:
     def full_inertial_ba_converged(self, kf: KeyFrame, *args, **kwargs) -> int:
         raise NotImplementedError(
             "the converged full inertial BA of the post-loop global BA is not ported "
-            "yet (ROADMAP M7)"
+            "yet (ROADMAP M7b)"
         )
 
     def _inertial_window_ba(self, chain, window: int = 8, n_anchors: int = 0):

@@ -8,7 +8,10 @@ from the port's own copy of the source with g++ at first use into
 `fasttrack_tpu_torch/_build/`, keyed by a hash of the source, the flags and
 the host, written under a temporary name and moved into place with
 `os.replace`, so a process never loads a half-written file. A failed build
-raises with g++'s messages; nothing falls back.
+raises with g++'s messages; nothing falls back. `available()` says whether
+the library builds and loads, for the one caller with a NumPy branch of its
+own, as in the JAX package: the tree vocabulary's host Hamming matrix
+(bow/vocabulary.py).
 """
 
 from __future__ import annotations
@@ -79,6 +82,16 @@ def _load() -> ctypes.CDLL:
     ]
     lib.distribute_octree.restype = ctypes.c_int
     return lib
+
+
+def available() -> bool:
+    """True where the library builds and loads (fasttrack_tpu/native.py's
+    `available`)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -7,12 +7,20 @@ Atlas/Tracking/LocalMapping, TrackStereo is the entry point, then Shutdown
 and the trajectory savers in TUM / EuRoC / KITTI formats
 (System.cc:590-1285).
 
+Place recognition is on by default, as in the JAX package and the
+reference: `vocabulary=None` loads the port's shipped vocabulary
+(bow/orb_vocab_32k.npz), a synchronous LoopCloser gets every keyframe after
+the local mapper has processed it, and a lost tracker relocalizes against
+the keyframe database the two share. `vocabulary=False` runs tracking and
+local mapping without them.
+
 Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: place recognition
-(`vocabulary` other than False: loop closing and relocalization, M7), the
-monocular and RGB-D sensors with and without an IMU, input resize,
-start-up rectification of a distorted pair, fisheye rigs and atlas
-save/load, inertial maps included (M9).
+is asked for, never taking another path quietly: a vocabulary with
+`Sensor.IMU_STEREO` (inertial loop closing) or with `async_mapping=True`
+(the loop-closer and global-BA threads) (M7b); the monocular and RGB-D
+sensors with and without an IMU, input resize, start-up rectification of a
+distorted pair, fisheye rigs and atlas save/load, inertial maps included
+(M9).
 """
 
 from __future__ import annotations
@@ -22,10 +30,13 @@ from typing import Optional
 
 import numpy as np
 
+from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary
+from fasttrack_tpu_torch.cameras.host import host_camera
 from fasttrack_tpu_torch.convert import imu_calib_from_numpy
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.kernels import KernelConfig, get_run_mode
 from fasttrack_tpu_torch.local_mapping import LocalMapper
+from fasttrack_tpu_torch.loop_closing import LoopCloser
 from fasttrack_tpu_torch.nputils import matrix_to_quat
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.settings import Settings
@@ -72,14 +83,10 @@ class System:
             raise NotImplementedError(
                 f"the sensor {sensor.name} is not ported yet (ROADMAP M9)"
             )
-        if vocabulary is not False:
-            # The reference always loads ORBvoc.txt (System.cc:130-146) and the
-            # JAX package's default (None) loads the shipped vocabulary.
+        if vocabulary is not False and sensor is Sensor.IMU_STEREO:
             raise NotImplementedError(
-                "place recognition (loop closing and relocalization against a "
-                "vocabulary) is not ported yet (ROADMAP M7): pass vocabulary=False, "
-                "which runs tracking and local mapping without it; the default "
-                "(None) would have to load the shipped vocabulary"
+                "inertial loop closing (a vocabulary with Sensor.IMU_STEREO) is not "
+                "ported yet (ROADMAP M7b): pass vocabulary=False"
             )
         if settings.new_width and settings.new_height and (
             settings.new_width != settings.width
@@ -117,8 +124,26 @@ class System:
             ini_threshold=settings.ini_th_fast,
             min_threshold=settings.min_th_fast,
         )
-        self.vocabulary = None
+        # Place recognition is on by default: the reference always loads
+        # ORBvoc.txt (System.cc:130-146). vocabulary=None loads the shipped
+        # one; vocabulary=False disables loop closing and relocalization.
+        if vocabulary is None:
+            vocabulary = load_default_vocabulary()
+        self.vocabulary = vocabulary if vocabulary is not False else None
         self.loop_closer = None
+        if self.vocabulary is not None:
+            fx, fy, cx, cy = host_camera(settings.camera1).params[:4]
+            self.loop_closer = LoopCloser(
+                self.atlas, self.vocabulary,
+                np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]),
+                scale_factor=settings.scale_factor,
+                fix_scale=True,   # stereo: the scale is observed
+                run_async=async_mapping,
+                camera=settings.camera1,
+                bf=settings.bf or 1.0,
+                n_levels=settings.n_levels,
+                device=self.device,
+            )
         # Inertial calibration (IMU::Calib, ImuTypes.h:46-126) from settings.
         self.imu_calib = None
         if sensor is Sensor.IMU_STEREO:
@@ -133,6 +158,7 @@ class System:
             self.atlas, settings.camera1, settings.bf,
             settings.scale_factor, settings.n_levels,
             run_async=async_mapping,
+            loop_closer=self.loop_closer,
             imu_calib=self.imu_calib,
             stats=self.stats,
             device=self.device,
@@ -146,6 +172,12 @@ class System:
             device=self.device,
         )
         self.local_mapper.tracker = self.tracker
+        if self.loop_closer is not None:
+            self.tracker.reloc_db = self.loop_closer.db
+            self.atlas.set_kf_database(self.loop_closer.db)
+            self.tracker.vocabulary = self.vocabulary
+            self.loop_closer.tracker = self.tracker
+            self.loop_closer.local_mapper = self.local_mapper
 
     # ------------------------------------------------------------- tracking
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
@@ -181,8 +213,10 @@ class System:
         self.tracker.localization_only = False
 
     def shutdown(self):
-        """System::Shutdown (System.cc:520-560): stop the worker thread."""
+        """System::Shutdown (System.cc:520-560): stop the worker threads."""
         self.local_mapper.stop()
+        if self.loop_closer is not None:
+            self.loop_closer.stop()
 
     def save_atlas(self, path: str):
         raise NotImplementedError("atlas save is not ported yet (ROADMAP M9)")

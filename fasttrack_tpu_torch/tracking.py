@@ -12,13 +12,18 @@ control flow (Tracking.cc:1851-2392):
        -> pose opt unless bypassed)                       [Tracking.cc:3042]
     -> NeedNewKeyFrame / CreateNewKeyFrame                [Tracking.cc:3193]
     -> RECENTLY_LOST / LOST handling + new map in Atlas   [Tracking.cc:2038]
+       with relocalization against the keyframe database  [Tracking.cc:3798]
 
 An OK-state frame takes the single-fetch fused path (fused_track); the first
 frame after initialization, a failed motion-model search and lost states
 take the stepwise programs above. The tracker creates the close stereo
 points of every keyframe itself and hands the keyframe to the local mapper
 (local_mapping.LocalMapper), which culls, triangulates, fuses and adjusts;
-without one it is stereo visual odometry over a growing map.
+without one it is stereo visual odometry over a growing map. With a
+vocabulary and the keyframe database it shares with the loop closer
+(`vocabulary`, `reloc_db`, wired by the System), a lost visual tracker
+relocalizes: BoW candidates, the top-K match at K = 2, RANSAC PnP on the
+host, pose optimization on the device and a widening-window rebind.
 
 With an IMU (`imu_calib`) the tracker preintegrates the queued samples on
 the host every frame (imu.preintegration.HostPreintegrated), predicts the
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from fasttrack_tpu_torch import convert, frame_pipeline
+from fasttrack_tpu_torch.bow.vocabulary import quantize
 from fasttrack_tpu_torch.cameras.host import (
     frustum_depth_ok,
     host_camera,
@@ -103,6 +109,7 @@ from fasttrack_tpu_torch.optim.inertial import (
     sqrtm_psd_np,
     whitening_np,
 )
+from fasttrack_tpu_torch.optim.pnp import ransac_pnp
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 
@@ -1206,14 +1213,103 @@ class Tracker:
 
     # -------------------------------------------------------- relocalization
     def _relocalization(self, frame: TrackedFrame) -> bool:
-        """Tracking::Relocalization (Tracking.cc:3798). Requires a
+        """Tracking::Relocalization (Tracking.cc:3798): BoW candidate
+        keyframes -> descriptor matching (one launch of the top-K kernel at
+        K = 2 per candidate) -> RANSAC PnP on the host -> pose optimization
+        on the device -> the widening-window rebind. Requires a
         place-recognition database (self.reloc_db, shared with loop
-        closing); without one there is nothing to relocalize against."""
+        closing); without one there is nothing to relocalize against.
+        Records `reloc_candidates` per attempt and, per candidate that
+        passes PnP, `reloc_pnp_inliers` and the inliers after the rebind,
+        `reloc_inliers`."""
         if self.reloc_db is None or self.vocabulary is None:
             return False
-        raise NotImplementedError(
-            "relocalization against a keyframe database is not ported yet (ROADMAP M7)"
+        m = self.atlas.current
+        _, bow = quantize(self.vocabulary, frame.desc_signed, frame.valid, device=self.device)
+        cands = self.reloc_db.detect_relocalization_candidates(bow, n_best=5)
+        self.stats.record_count("reloc_candidates", len(cands))
+        for kid in cands:
+            kf = m.keyframes.get(kid)
+            if kf is None:
+                continue
+            has_mp = kf.mp_ids >= 0
+            if has_mp.sum() < 15:
+                continue
+            pos, desc, okq = self._gather_map_points(kf.mp_ids, m)
+            okq &= has_mp
+            _, _, kd, _, kvalid, _ = self._frame_device_arrays(frame)
+            res = match_fisheye(
+                self._upload(desc, np.int8), self._upload(okq, np.bool_), kd, kvalid, ratio=0.75,
+            )
+            idx_right, keep = device_fetch(res.idx_right, res.valid)
+            self.stats.record_count("device_fetches", 1)
+            if keep.sum() < 15:
+                continue
+            idxf = idx_right[keep]
+            X = pos[keep]
+            rays = unproject_np(self._cam_host, frame.kp_uv[idxf])
+            sig2 = (1.0 / self._inv_sigma2)[frame.kp_level[idxf]]
+            pnp = ransac_pnp(X.astype(np.float64), rays, sig2, float(self._cam_host.params[0]))
+            if not pnp.success:
+                continue
+            self.stats.record_count("reloc_pnp_inliers", int(pnp.inliers.sum()))
+            frame.mp_ids[:] = -1
+            frame.mp_ids[idxf[pnp.inliers]] = kf.mp_ids[keep][pnp.inliers]
+            if not self._optimize_frame_pose(frame, pnp.R_cw, pnp.t_cw, min_inliers=10):
+                continue
+            # Widening-window refinement (Tracking.cc:3889-3975): when the
+            # BoW seed leaves < 50 inliers, re-project the candidate KF's map
+            # points through the refined pose with a wide window, rebind,
+            # and re-optimize; then once more with a narrow window.
+            for window in (10.0, 3.0):
+                if self.n_inliers >= 50:
+                    break
+                if self._reloc_projection_rebind(frame, kf, m, window):
+                    self._optimize_frame_pose(frame, frame.R_cw, frame.t_cw, min_inliers=10)
+            self.stats.record_count("reloc_inliers", self.n_inliers)
+            if self.n_inliers >= 50:
+                self.ref_kf_id = kid
+                return True
+        return False
+
+    def _reloc_projection_rebind(self, frame: TrackedFrame, kf, m, window: float) -> bool:
+        """SearchByProjection(CurrentFrame, pKF, th, ...) for relocalization
+        (ORBmatcher.cc:2087), on the host: project the candidate keyframe's
+        map points with the current pose estimate and window-match unbound
+        keypoints."""
+        has_mp = kf.mp_ids >= 0
+        if frame.R_cw is None or has_mp.sum() == 0:
+            return False
+        mids = kf.mp_ids.copy()
+        pos, _, okq = self._gather_map_points(mids, m)
+        okq &= has_mp
+        # skip points already bound to this frame
+        bound = frame.mp_ids[frame.mp_ids >= 0]
+        if len(bound):
+            okq &= ~np.isin(mids, bound)
+        Xc = pos @ frame.R_cw.T.astype(np.float32) + frame.t_cw.astype(np.float32)
+        uv = project_np(self._cam_host, Xc)
+        okq &= frustum_depth_ok(self._cam_host, Xc) & in_image_np(self._cam_host, uv)
+        if not okq.any():
+            return False
+        lvl = kf.kp_level.astype(np.int32)
+        radius = (window * self._scale_factors[lvl]).astype(np.float32)
+        packed = self._packed_for(mids, m, okq)
+        taken = frame.mp_ids >= 0
+        idx, _, hit = hk.host_search_by_projection(
+            uv.astype(np.float32), packed, radius,
+            np.maximum(lvl - 1, 0), np.minimum(lvl + 1, self.cfg.n_levels - 1),
+            okq, frame.kp_uv.astype(np.float32), frame.desc_packed,
+            frame.kp_level.astype(np.int32), frame.valid & ~taken,
+            max_dist=TH_HIGH,
         )
+        n_new = 0
+        for q in np.where(hit)[0]:
+            i = int(idx[q])
+            if frame.mp_ids[i] < 0:
+                frame.mp_ids[i] = mids[q]
+                n_new += 1
+        return n_new > 0
 
     # ---------------------------------------------------------- local map
     def _local_map_ids(self, frame: TrackedFrame):

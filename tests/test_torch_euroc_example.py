@@ -9,7 +9,9 @@
 - `examples/torch_stereo_euroc.py` end to end on that layout with
   `--device cpu --gt`: the ATE gate of the JAX package's test of its script
   (`ate_rmse < 0.10`, `n_associated >= 10`), and an ATE no worse than the
-  JAX script's on the same files by more than 5 mm;
+  JAX script's on the same files by more than 5 mm, both scripts with their
+  package's shipped vocabulary (place recognition on), the JAX one on its
+  own native build;
 - `--imu` on a rendered layout of 70 frames with its IMU stream (the
   inertial gate, ROADMAP F6: IMU init needs 2 s of keyframes, which 16
   frames never reach): ate.json says `imu_initialized` and the ATE is
@@ -32,11 +34,11 @@ import numpy as np
 import pytest
 import torch
 
-from fasttrack_tpu import native as jnative
 from fasttrack_tpu.datasets import loaders as jloaders
 from fasttrack_tpu.settings import load_settings as jax_load_settings
 from fasttrack_tpu_torch.datasets import EurocSequence, ImuData, load_image, loaders
 from fasttrack_tpu_torch.settings import Settings, load_settings
+from tests.test_torch_host_kernels import jax_native_library
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 EXAMPLES = os.path.join(ROOT, "examples")
@@ -97,12 +99,6 @@ System.SaveAtlasToFile: "out.osa"
 ORBextractor.iniThFAST: 15
 ORBextractor.minThFAST: 5
 """
-
-
-def numpy_hamming_matrix_packed(a, b):
-    bits_a = np.unpackbits(np.ascontiguousarray(a, np.uint8), axis=1).astype(np.int32)
-    bits_b = np.unpackbits(np.ascontiguousarray(b, np.uint8), axis=1).astype(np.int32)
-    return (bits_a @ (1 - bits_b).T + (1 - bits_a) @ bits_b.T).astype(np.int32)
 
 
 @contextlib.contextmanager
@@ -257,11 +253,10 @@ def driven(rendered, tmp_path_factory):
     with one_torch_thread():
         run_script(os.path.join(EXAMPLES, "torch_stereo_euroc.py"),
                    args + ["--out", out_t, "--device", "cpu"])
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jnative, "hamming_matrix_packed", numpy_hamming_matrix_packed)
-    # the JAX script loads the shipped vocabulary; the port's runs without one
-    run_script(os.path.join(EXAMPLES, "stereo_euroc.py"), args + ["--out", out_j])
-    mp.undo()
+    # both scripts load their package's shipped vocabulary; the JAX side runs
+    # its own native build (the tree vocabulary's host Hamming matrix)
+    with jax_native_library(tmp_path_factory.mktemp("jax_native")):
+        run_script(os.path.join(EXAMPLES, "stereo_euroc.py"), args + ["--out", out_j])
     return out_t, out_j
 
 

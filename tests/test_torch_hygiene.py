@@ -15,6 +15,10 @@
   and, with an IMU, `ImuCalib`, `Tracker`, `LocalMapper` and
   `System(Sensor.IMU_STEREO)`.
 - `nputils.device_fetch` returns what it was given, in one copy.
+- Place recognition: the vocabulary is the port's own copy, loaded from its
+  own directory; `LoopCloser`, the default `System` (which builds one) and
+  the functions that run on a device (`quantize` of a flat vocabulary,
+  `train_vocabulary`, `optimize_sim3`) resolve `device=None` to the card.
 """
 
 import ast
@@ -79,10 +83,14 @@ def test_package_has_the_slice_modules():
         "ops/host_kernels.py", "local_mapping.py", "settings.py", "datasets/loaders.py",
         "system.py", "imu/__init__.py", "imu/preintegration.py", "imu/init.py",
         "optim/inertial.py", "native.py",
+        "bow/__init__.py", "bow/vocabulary.py", "bow/database.py", "optim/pnp.py",
+        "optim/sim3_solver.py", "optim/sim3_opt.py", "optim/pose_graph.py", "loop_closing.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu", "fasttrack_native.cpp"):
         assert (PACKAGE / "ops" / "csrc" / source).is_file()
+    for data in ("orb_vocab_32k.npz", "orb_vocab.npz"):
+        assert (PACKAGE / "bow" / data).is_file()
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -334,3 +342,46 @@ def test_the_inertial_system_defaults_to_the_card_and_honours_cpu(monkeypatch):
     monkeypatch.undo()
     _asks_the_resolver(monkeypatch, [local_mapping], lambda: local_mapping.LocalMapper(
         Atlas(), cam, 28.0, imu_calib=calib))
+
+
+def test_the_vocabulary_is_the_ports_own():
+    from fasttrack_tpu_torch.bow import vocabulary
+
+    for path in (vocabulary.DEFAULT_TREE, vocabulary.DEFAULT_FLAT):
+        assert Path(path).resolve().parent == (PACKAGE / "bow").resolve()
+    source = (PACKAGE / "bow" / "vocabulary.py").read_text()
+    assert "fasttrack_tpu/" not in source.replace("fasttrack_tpu/bow/vocabulary.py", "")
+
+
+def test_place_recognition_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    from fasttrack_tpu_torch import loop_closing
+    from fasttrack_tpu_torch.bow import vocabulary
+    from fasttrack_tpu_torch.optim import sim3_opt
+    from fasttrack_tpu_torch.settings import Settings
+
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    K = np.array([[256.0, 0, 160.0], [0, 256.0, 120.0], [0, 0, 1]])
+    voc = vocabulary.make_random_vocabulary(16)
+    lc = loop_closing.LoopCloser(Atlas(), voc, K, camera=cam, device="cpu")
+    assert lc.device == torch.device("cpu") and lc.camera.params.device.type == "cpu"
+    made = _asks_the_resolver(monkeypatch, [loop_closing],
+                              lambda: loop_closing.LoopCloser(Atlas(), voc, K, camera=cam))
+    assert made.camera.params.device == made.device
+    monkeypatch.undo()
+
+    def settings():
+        return Settings(camera1=cam, bf=28.0, width=320, height=240, n_features=256, n_levels=4)
+
+    made = _asks_the_resolver(monkeypatch, [system], lambda: system.System(settings()))
+    assert made.loop_closer.device == made.tracker.device == made.device
+    monkeypatch.undo()
+    descs = np.ones((20, 256), np.int8)
+    for build in (lambda: vocabulary.quantize(voc, descs),
+                  lambda: vocabulary.train_vocabulary(descs, 4),
+                  lambda: sim3_opt.optimize_sim3(np.ones((4, 3)), np.ones((4, 3)), np.zeros((4, 2)),
+                                                 np.zeros((4, 2)), K, K, np.ones(4), np.ones(4),
+                                                 1.0, np.eye(3), np.zeros(3))):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+        monkeypatch.undo()

@@ -624,7 +624,7 @@ def test_tracker_with_a_mapper_follows_the_jax_tracker(mapped):
 @pytest.mark.parametrize("kwargs, item", [
     (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial
     (dict(monocular=True), "M9"),
-    (dict(loop_closer=object()), "M7"),
+    (dict(loop_closer=object(), run_async=True), "M7"),   # on the mapping thread: M7b
     (dict(mesh=object()), "M10"),
 ])
 def test_left_out_branches_raise_with_their_item(kwargs, item):

@@ -30,6 +30,7 @@ from fasttrack_tpu.settings import Settings as JaxSettings
 from fasttrack_tpu.system import Sensor as JaxSensor
 from fasttrack_tpu.system import System as JaxSystem
 from fasttrack_tpu_torch import kernels, nputils
+from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary, make_random_vocabulary
 from fasttrack_tpu_torch.cameras import make_kannala_brandt8, make_pinhole
 from fasttrack_tpu_torch.datasets import synthetic
 from fasttrack_tpu_torch.evaluation import ate
@@ -242,11 +243,16 @@ def _settings(**kw):
 
 
 LEFT_OUT = {
-    "default vocabulary": (dict(), dict(vocabulary=None), "M7"),
-    "a vocabulary": (dict(), dict(vocabulary=object()), "M7"),
+    # place recognition runs with the visual system's inline mapping
+    # (tests/test_torch_relocalization.py, test_torch_loop_closing.py); on a
+    # mapping thread the loop closer and its global BA would need threads of
+    # their own (M7b)
+    "default vocabulary": (dict(), dict(vocabulary=None, async_mapping=True), "M7b"),
+    "a vocabulary": (dict(), dict(vocabulary=make_random_vocabulary(64),
+                                  sensor=Sensor.IMU_STEREO), "M7b"),
     # the stereo-inertial system runs (tests/test_torch_system_inertial.py);
-    # its loop closing is M7's, like the visual system's
-    "IMU_STEREO": (dict(), dict(sensor=Sensor.IMU_STEREO, vocabulary=None), "M7"),
+    # its loop closing is inertial loop closing (M7b)
+    "IMU_STEREO": (dict(), dict(sensor=Sensor.IMU_STEREO, vocabulary=None), "M7b"),
     "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9"),
     "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9"),
     "MONOCULAR": (dict(), dict(sensor=Sensor.MONOCULAR), "M9"),
@@ -272,8 +278,15 @@ def test_left_out_branch_raises_with_its_item(name):
 
 
 def test_the_vocabulary_message_says_what_to_pass():
-    with pytest.raises(NotImplementedError, match="vocabulary=False"):
-        System(_settings(), device="cpu")
+    """The default runs place recognition with the port's shipped
+    vocabulary; where it is not ported yet, the message says to pass
+    vocabulary=False."""
+    system = System(_settings(), device="cpu")
+    assert system.vocabulary is load_default_vocabulary()
+    assert system.loop_closer is not None and system.tracker.vocabulary is system.vocabulary
+    system.shutdown()
+    with pytest.raises(NotImplementedError, match="M7b.*vocabulary=False"):
+        System(_settings(), Sensor.IMU_STEREO, device="cpu")
 
 
 def test_an_undistorted_pair_needs_no_rectification():

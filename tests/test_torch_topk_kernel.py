@@ -180,3 +180,26 @@ def test_match_fisheye_launches_the_kernel_with_k_2_on_gpu(rng, cuda_device, sha
     want = match_fisheye(*(t.cpu() for t in on))      # the plain version, on the CPU
     assert torch.equal(got.idx_right.cpu(), want.idx_right)
     assert torch.equal(got.valid.cpu(), want.valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 4096), (700, 64)])
+def test_vocabulary_assign_launches_the_kernel_with_k_1_on_gpu(rng, cuda_device, shape):
+    """K = 1 with zero penalties, as the flat vocabulary's `_assign` calls the
+    kernel (4096 words at most, MAX_N): the word of every descriptor equals
+    the plain argmin's first index, and so does the distance, with rows
+    drawn from few descriptors so that most of them tie."""
+    from fasttrack_tpu_torch.bow.vocabulary import _assign, _assign_reference
+
+    M, N = shape
+    descs = torch.from_numpy(descriptors(rng, M, 7)).to(cuda_device)
+    words = torch.from_numpy(descriptors(rng, N, 5)).to(cuda_device)
+    before = hamming_penalty_topk.launches_by_k[1]
+    got = _assign(descs, words)
+    torch.cuda.synchronize()
+    assert hamming_penalty_topk.launches_by_k[1] == before + 1
+    assert torch.equal(got.cpu(), _assign_reference(descs.cpu(), words.cpu()))
+    zeros_q, zeros_k = torch.zeros(M, device=cuda_device), torch.zeros(N, device=cuda_device)
+    values, indices = hamming_penalty_topk(descs, words, zeros_q, zeros_k, 1)
+    want_v, want_i = hamming_penalty_topk_reference(descs, words, zeros_q, zeros_k, 1)
+    assert torch.equal(values, want_v) and torch.equal(indices, want_i)

@@ -619,13 +619,25 @@ def test_toggle_off_raises_where_its_host_path_would_run(seq, jax_host_kernels, 
 
 
 def test_relocalization_without_a_database_is_false_and_with_one_raises(seq):
+    """Without a database there is nothing to relocalize against. With one
+    (place recognition is ported: tests/test_torch_relocalization.py holds
+    it against the JAX package), the first frame relocalizes against the
+    keyframe it made, and a database that holds no keyframe yields no
+    candidate and no pose."""
+    from fasttrack_tpu_torch.bow import KeyFrameDatabase
+    from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary, quantize
+
     tr = _cpu_tracker(seq)
     f = seq.frames[0]
     tr.track_stereo(f.left, f.right, f.timestamp)
     assert tr._relocalization(tr.last_frame) is False
-    tr.reloc_db, tr.vocabulary = object(), object()
-    with pytest.raises(NotImplementedError, match="M7"):
-        tr._relocalization(tr.last_frame)
+    tr.reloc_db, tr.vocabulary = KeyFrameDatabase(), load_default_vocabulary()
+    assert tr._relocalization(tr.last_frame) is False
+    for kid, kf in tr.atlas.current.keyframes.items():
+        tr.reloc_db.add(kid, quantize(tr.vocabulary, kf.desc_signed, kf.valid)[1])
+    tr.ref_kf_id = None
+    assert tr._relocalization(tr.last_frame) is True
+    assert tr.ref_kf_id == 0 and tr.n_inliers >= 50
 
 
 def test_kernel_config_bitmask():

@@ -4,9 +4,9 @@ package, on the CPU, at the size of `chip_smoke.py` phase 16.
 
     python tools/host_route_drift.py --package torch|jax [--mask 0000] [--seed 0]
 
-Renders the 752x480 sequence of `chip_smoke.py` phase 13
+Renders the 752x480 160-frame sequence of `chip_smoke.py` phase 16
 (datasets.synthetic, the same bits in both packages; seed 0 is the one
-phases 13 and 16 track), runs its first 60 frames through `System(settings,
+phase 16 tracks), runs its first 60 frames through `System(settings,
 Sensor.IMU_STEREO, kernel_config=KernelConfig.from_bitmask(mask),
 vocabulary=False)` of the package named with 1024 features and 8 levels,
 inline mapping, one CPU thread for the port, and prints for every frame the
@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 H, W = 480, 752                 # chip_smoke.py's CFG
 N_FEATURES, N_LEVELS = 1024, 8
 N_FRAMES = 60                   # chip_smoke.py's N_HOST_INERTIAL_FRAMES
-N_SEQUENCE_FRAMES = 160         # chip_smoke.py's N_INERTIAL_FRAMES: the rendered sequence
+N_SEQUENCE_FRAMES = 160         # chip_smoke.py's N_HOST_ROUTE_SEQUENCE_FRAMES: the rendered sequence
 
 
 def main():
