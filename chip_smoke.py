@@ -20,7 +20,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    calls it (validity penalties of 1e9, so that whole rows tie), and K = 1
    as the flat vocabulary's quantization calls it (1024 x 4096, zero
    penalties; with rows tied at 1e9; a tied 700 x 64) beside matrix kernel
-   + torch.argmin; device
+   + torch.argmin, and K = 1 past the kernel's 4,096 words as `_assign`
+   runs it for a wider vocabulary (1024 x 5000 in two launches merged on
+   the card, rows tied across and inside the chunks); device
    time of each beside
    its plain version,
    what the fused kernel replaces (matrix kernel + stable sort) and
@@ -59,8 +61,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
    frames, map-point counts and poses;
 12. system, mapping on its own thread (async_mapping=True): every frame OK,
    the mapper drained and idle after shutdown, the ATE;
-13. stereo-inertial system: System(Settings(...), Sensor.IMU_STEREO,
-   vocabulary=False).track_stereo(left, right, t, imu=samples) over a
+13. stereo-inertial system in its default configuration:
+   System(Settings(...), Sensor.IMU_STEREO) with the shipped vocabulary
+   (the loop closer takes every keyframe inline)
+   .track_stereo(left, right, t, imu=samples) over a
    rendered 160-frame sequence (8 s) with its exact 200 Hz IMU stream,
    inline mapping: keyframes every 0.25 s until the mapper initializes the
    IMU (>= 6 keyframes over >= 2 s), then the inertial fused frames
@@ -72,7 +76,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    the frame of IMU init, the gyro bias (the stream has none), the share of
    stepwise frames and fetches per frame (ROADMAP F8), the ATE, ms/frame of
    fused, stepwise and keyframe frames and ms per inertial window on the
-   host's clock;
+   host's clock, the loop closer's ms per keyframe, loops, merges and
+   launches;
 14. the inertial programs, card against CPU, replayed: the first three
    inertial fused frames' tlm_step_vi and the first local inertial BA
    window of phase 13, recorded with their inputs, run again on the CPU
@@ -123,18 +128,55 @@ Phases, each printing a line; any failure raises and exits non-zero:
    loop (datasets.synthetic trajectory="loop"): loops closed and global BAs
    as the JAX package's paired reading says, the ATE (limit twice the JAX
    package's), ms/frame of frames with and without a keyframe and of
-   loop-closing ones, the loop closer's ms and launches per keyframe.
+   loop-closing ones, the loop closer's ms and launches per keyframe;
+19. inertial loop closing: (a) tests/test_inertial_loop.py's scene
+   (drifted_loop_scene(inertial=True): an IMU-initialized map whose drifted
+   return leg carries drifted velocities) through LoopCloser.process_keyframe
+   on the card: the loop closes through the 4-DoF essential graph, every
+   vertex update keeps world z within 1e-6, the corrected velocities follow
+   the corrected trajectory (0.25 m/s) and the outbound leg's stay (0.2),
+   the same on the CPU within 1e-5; (b) the post-loop global BA of phase
+   13's IMU-initialized map: LoopCloser._run_global_ba takes the mapper's
+   converged full inertial BA (sweeps, windows, ms), a second call runs one
+   sweep and moves no keyframe by more than 1e-3 m (its kernel launches
+   counted by the profiler), and the keyframes' ATE stays within 0.02 m;
+20. the Atlas map merge: (a) tests/test_gba_merge.py's two maps
+   (two_map_scene) through LoopCloser.process_keyframe with the global BA:
+   one merge through the routing of process_keyframe, the emptied map gone
+   and the old one current, the welded centres within 0.15 m of the truth,
+   the merge's own K = 2 and matrix launches, the same on the CPU within
+   1e-5; (b) the default System(Sensor.STEREO) over frames 0-79 of phase
+   18b's loop, 7 blank frames 1 s apart (a new map starts), frames 20-59
+   again (the new map's world is frame 20's camera, 1.47 m and 4.1 degrees
+   from the old map's): the merges, the ATE of the frames fed again and,
+   after the merging frame, the camera centres in the old map's world
+   without alignment, as the JAX package's paired reading gates them (1
+   merge; twice its ATE and twice its centre error);
+21. the threads: (a) the drifted map through LoopCloser(run_async=True)'s
+   insert_keyframe: the loop closes on the closer's thread and its global
+   BA on its own; then tests/test_gba_merge.py::test_gba_off_critical_path's
+   drifted leg, its global BA on its thread while 4 keyframes go into the
+   map under the lock: threads joined, no thread error, the reprojection
+   error below 0.5 of its start; (b) System(Sensor.IMU_STEREO,
+   async_mapping=True) with the shipped vocabulary over the first 50 frames
+   of phase 13's sequence: every frame OK, IMU init, the ATE, the queues
+   drained, no mapper, loop-closer or global-BA thread alive after
+   shutdown(), no thread error, ms/frame.
 
 Phases 8 to 12 and 15 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
-same frames. Phases 13 and 16 share another.
+same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
+13's map.
 
 The line before the last two is a JSON object of the kernels; the last is
-{"ok": true, "device": {...}}. Each kernel's `launches` is what the ten
-paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a and 18b) launched, counted
-from 0 at each path's start; `launches_relocalization` and
-`launches_loop_closing` are the part of phases 17-18 that relocalization
-and the loop closer made. The matrix kernel is launched by the system paths alone (map-point
+{"ok": true, "device": {...}}. Each kernel's `launches` is what the
+fifteen paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a, 20b,
+21a and 21b) launched, counted from 0 at each path's start (phase 19b launches
+neither); `launches_relocalization` and `launches_loop_closing` are the
+part of phases 17-18 that relocalization and the loop closer made, and
+`launches_merge` the part of phases 20a and 20b that `_merge_maps` made
+(the top-K kernel's K = 2 verification, the matrix kernel's fusion at the
+weld). The matrix kernel is launched by the system paths alone (map-point
 fusion); no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
@@ -145,6 +187,7 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -166,12 +209,16 @@ from fasttrack_tpu_torch import (
 )
 from fasttrack_tpu_torch.bow.vocabulary import train_vocabulary
 from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
+from fasttrack_tpu_torch.datasets import synthetic
 from fasttrack_tpu_torch.datasets.synthetic import (
     LOOP_FX,
     LOOP_H,
     LOOP_W,
     drifted_loop_scene,
     generate_sequence,
+    mean_reprojection_error,
+    noisy_leg_scene,
+    two_map_scene,
 )
 from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
 from fasttrack_tpu_torch.frame_pipeline import (
@@ -217,6 +264,7 @@ TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 102
               (1024, 4096, "validity", 1), (700, 64, "tied", 1)]
 # K = 1: the flat vocabulary's quantization (bow/vocabulary.py:_assign), the
 # shipped flat vocabulary's 4096 words at the kernel's MAX_N, zero penalties
+CHUNKED_SHAPE = (1024, 5000)    # K = 1 past MAX_N: a wider flat vocabulary in two launches
 N_SYSTEM_FRAMES = 100           # the rendered sequence; phases 10 and 12 (its first 40)
 N_TRACKER_FRAMES = 40           # of them, phase 8 (no mapper)
 N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
@@ -274,6 +322,27 @@ LOOP_JAX_CLOSES = False
 LOOP_JAX_ATE_M = 0.1279
 LOOP_ATE_LIMIT_M = 2 * LOOP_JAX_ATE_M
 DRIFT_RATIO = 0.6               # phase 18a: tests/test_gba_merge.py's bound on the drift left
+N_ASYNC_INERTIAL_FRAMES = 50    # phase 21b: of phase 13's sequence (IMU init near frame 40)
+# Phase 20b: frames 0-79 of phase 18b's loop, 7 blank frames 1 s apart (6
+# span exactly time_recently_lost, 5 s, which does not pass it: the next
+# frame re-acquires in the old map), frames 20-59 again, so that the new
+# map's world (frame 20's camera) is offset from the old map's (frame 0's)
+# and the weld has to undo it. The gates come from
+# tools/place_recognition_reading.py's merge reading on the card's host CPU:
+# the JAX package merges once, at the 5th frame fed again (frame 24); the
+# frames fed again have an ATE RMSE of 0.4797 m (SE(3) alignment over the
+# two worlds: it cannot see the weld), 0.0082 m after the merging frame,
+# and after it the camera centres lie at most 0.0876 m from the truth in
+# the old map's world without alignment, the gate that sees the weld (the
+# port: the 5th frame, 0.4667, 0.0044 and 0.0391 m).
+N_MERGE_TRACKED, N_MERGE_BLANK, N_MERGE_AGAIN = 80, 7, 40
+MERGE_AGAIN_FROM = 20
+MERGE_JAX_MERGES = 1
+MERGE_JAX_ATE_M = 0.4797
+MERGE_ATE_LIMIT_M = 2 * MERGE_JAX_ATE_M
+MERGE_JAX_ATE_AFTER_M = 0.0082
+MERGE_JAX_CENTRE_M = 0.0876
+MERGE_CENTRE_LIMIT_M = 2 * MERGE_JAX_CENTRE_M
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -500,6 +569,46 @@ def phase_topk_kernel(device, card):
                 line += f", matrix kernel + torch.argmin {amin * 1e3:.2f} us"
         print(f"{line} ({card})")
     return rows, max_err, mismatches
+
+
+def phase_assign_chunked(device, card):
+    """K = 1 past the kernel's MAX_N words: bow/vocabulary.py:_assign
+    quantizes a 5,000-word flat vocabulary in two launches (4,096 + 904
+    words) merged on the card. Held against its plain version (the argmin
+    of the plain Hamming matrix, on the card) with rows tied across the
+    chunks and inside the second one and words that only the second chunk
+    holds."""
+    from fasttrack_tpu_torch.bow.vocabulary import _assign, _assign_reference
+
+    rng = np.random.default_rng(2)
+    M, N = CHUNKED_SHAPE
+    q = (2 * rng.integers(0, 2, (M, 256)) - 1).astype(np.int8)
+    k = (2 * rng.integers(0, 2, (N, 256)) - 1).astype(np.int8)
+    k[4500:4600] = k[:100]                      # ties across the chunks: the lower index wins
+    q[200:300] = k[:100]
+    k[hamming_kernel.MAX_N:hamming_kernel.MAX_N + 64] = q[:64]   # exact only past MAX_N
+    k[4800:4864] = q[:64]                       # ties inside the second chunk
+    q_t, k_t = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (q, k))
+    kern = hamming_kernel.hamming_penalty_topk
+    before = kern.launches_by_k[1]
+    got = _assign(q_t, k_t)
+    torch.cuda.synchronize()
+    n_launches = kern.launches_by_k[1] - before
+    want = _assign_reference(q_t, k_t)
+    check(n_launches == -(-N // hamming_kernel.MAX_N),
+          f"chunked K = 1: {n_launches} launches for {N} words")
+    bad = int((got != want).sum())
+    check(bad == 0 and bool((want >= hamming_kernel.MAX_N).any()),
+          f"chunked K = 1 differs from plain at {(M, N)}: {bad} words")
+    k_ms, p_ms, timer = in_turns(lambda: _assign_reference(q_t, k_t), lambda: _assign(q_t, k_t))
+    b, by = bound_ms(M, N, M * 4)
+    print(f"phase 3 chunked K=1 (_assign, {N} words in {n_launches} launches of at most "
+          f"{hamming_kernel.MAX_N}) against plain {(M, N)}: words equal (ties across and inside "
+          f"the chunks, {int((want >= hamming_kernel.MAX_N).sum())} rows whose word is past "
+          f"MAX_N); device time ({timer}) {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+          f"{b * 1e3:.2f} us ({by}) ({card})")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by, "timer": timer,
+            "launches_per_call": n_launches}, bad
 
 
 def host_frame(f32, desc) -> dict:
@@ -1152,19 +1261,22 @@ def phase_system_async(device, seq, card):
     )
 
 
-def make_inertial_system(seq, device, kernel_config=None) -> System:
+def make_inertial_system(seq, device, kernel_config=None, vocabulary=False,
+                         async_mapping=False) -> System:
     """The stereo-inertial system at full width, built directly (no YAML):
     the renderer's body frame is the left camera's (T_b_c1 = I) and its IMU
     stream is exact at 200 Hz; the noise densities are the settings'
-    defaults (EuRoC's)."""
+    defaults (EuRoC's). Phases 13 and 21b run its default configuration,
+    the shipped vocabulary (vocabulary=None); phase 16 runs without place
+    recognition, the input its bound was set on."""
     settings = Settings(
         camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device),
         bf=seq.fx * seq.baseline, baseline=seq.baseline, width=W, height=H,
         n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
         T_b_c1=np.eye(4), imu_frequency=200.0,
     )
-    return System(settings, Sensor.IMU_STEREO, kernel_config=kernel_config, vocabulary=False,
-                  device=device)
+    return System(settings, Sensor.IMU_STEREO, kernel_config=kernel_config,
+                  async_mapping=async_mapping, vocabulary=vocabulary, device=device)
 
 
 def imu_between(seq, t0, t1):
@@ -1202,14 +1314,16 @@ def record_inertial_programs():
 
 
 def phase_system_inertial(device, seq, card):
-    """The stereo-inertial system a user calls, inline mapping, on the card:
-    every frame of a rendered sequence with its IMU samples through
-    System.track_stereo."""
+    """The stereo-inertial system a user calls in its default configuration
+    (the shipped vocabulary, so the loop closer takes every keyframe),
+    inline mapping, on the card: every frame of a rendered sequence with its
+    IMU samples through System.track_stereo."""
     kern = reset_launch_counts()
     matrix = hamming_kernel.hamming_penalty_matrix
-    system = make_inertial_system(seq, device)
-    keyframes = []
+    system = make_inertial_system(seq, device, vocabulary=None)
+    keyframes, lc_rows = [], []
     watch_mapper(system, keyframes)
+    watch_loop_closer(system.loop_closer, lc_rows)
     rec, restore = record_inertial_programs()
     try:
         log, t_prev = [], -1.0
@@ -1245,20 +1359,30 @@ def phase_system_inertial(device, seq, card):
     fused = [r for r in log if r["path"] == "fused"]
     stepwise = [r for r in log if r["path"] == "stepwise"]
     check(len(fused) >= 20, f"{len(fused)} fused inertial frames")
+    # the loop closer runs inside the mapper's keyframe (inline): its own
+    # launches are told apart by its wrapper
+    lc_by_kid = {r["kid"]: r for r in lc_rows}
+    check(len(lc_rows) == int(sum(series["lm_keyframes"])) > 0,
+          f"the loop closer saw {len(lc_rows)} keyframes")
     for k in keyframes:
-        check(k["topk"] == k["topk_epi_rows"] == k["lm_triangulation_passes"]
-              and k["matrix"] == k["lm_fuse_searches"]
+        lc = lc_by_kid.get(k["kid"], {"k1": 0, "k2": 0, "matrix": 0})
+        check(k["topk"] - lc["k1"] - lc["k2"] == k["topk_epi_rows"] == k["lm_triangulation_passes"]
+              and k["matrix"] - lc["matrix"] == k["lm_fuse_searches"]
               and k["lm_device_fetches"] == k["lm_triangulation_passes"] + k["lm_fuse_searches"]
               + k["lm_local_bas"] + k["lm_inertial_bas"],
               f"inertial keyframe {k['kid']}: launches and fetches disagree with the mapper: {k}")
+    lc_k = {key: sum(r[key] for r in lc_rows) for key in ("k1", "k2", "matrix")}
     total = {k: sum(row[k] for row in keyframes) for k in MAPPER_COUNTS}
     check(total["lm_imu_inits"] == 1 and total["lm_inertial_bas"] >= 2
           and total["lm_full_inertial_bas"] >= 1,
           f"{total['lm_imu_inits']} IMU inits, {total['lm_inertial_bas']} inertial windows, "
           f"{total['lm_full_inertial_bas']} full inertial BAs")
-    check(matrix.launches == total["lm_fuse_searches"] > 0, "the matrix kernel was not launched")
+    check(matrix.launches == total["lm_fuse_searches"] + lc_k["matrix"] > 0,
+          "the matrix kernel was not launched")
     check(kern.launches_by_rows[EPI_ROWS] == total["lm_triangulation_passes"] > 0,
           f"no {EPI_ROWS}-row top-k launch")
+    lc = system.loop_closer
+    check(lc.n_thread_errors == 0, f"{lc.n_thread_errors} thread errors")
     pending = True
     for i, r in enumerate(log):
         want = int(pending and r["path"] == "fused")
@@ -1309,12 +1433,16 @@ def phase_system_inertial(device, seq, card):
         f"visual local BAs {total['lm_local_bas']}, map points {m.n_mappoints()}; store uploads "
         f"{uploads}; ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames (limit {ATE_LIMIT_M}); "
         f"top-k kernel launches {kern.launches} ({dict(kern.launches_by_rows)} by rows), matrix "
-        f"kernel launches {matrix.launches}"
+        f"kernel launches {matrix.launches}; the loop closer (the shipped vocabulary, quantized "
+        f"on the host): {len(lc_rows)} keyframes, ms per keyframe median "
+        f"{np.median([r['ms'] for r in lc_rows]):.1f}, max {np.max([r['ms'] for r in lc_rows]):.1f}, "
+        f"loops closed {lc.n_loops_closed}, maps merged {lc.n_maps_merged}, global BAs "
+        f"{lc.n_gba_runs}, its launches {lc_k} (top-k K = 1 and K = 2, matrix)"
     )
     print("phase 13 keyframes: " + json.dumps(keyframes))
     check(len(rec["tlm_step_vi"]) == N_REPLAY_FRAMES and rec["local_inertial_ba"],
           "phase 13 recorded too few inertial calls to replay")
-    return kern.launches, matrix.launches, rec
+    return kern.launches, matrix.launches, rec, system, lc_k
 
 
 def to_device(x, device):
@@ -1663,6 +1791,29 @@ def watch_loop_closer(lc, rows):
     lc.process_keyframe = process_keyframe
 
 
+def watch_merge(lc, rows):
+    """Wraps the loop closer's _merge_maps: per attempt, whether it welded,
+    its ms on the host's clock (synchronised; with the global BA when the
+    closer is synchronous) and the K = 2 and matrix launches it made,
+    appended to `rows`."""
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    inner = lc._merge_maps
+
+    def merge_maps(*args):
+        k2, mat = kern.launches_by_k[2], matrix.launches
+        if lc.device.type == "cuda":
+            torch.cuda.synchronize(lc.device)
+        t0 = time.perf_counter()
+        ok = inner(*args)
+        if lc.device.type == "cuda":
+            torch.cuda.synchronize(lc.device)
+        rows.append({"welded": ok, "ms": (time.perf_counter() - t0) * 1e3,
+                     "k2": kern.launches_by_k[2] - k2, "matrix": matrix.launches - mat})
+        return ok
+
+    lc._merge_maps = merge_maps
+
+
 def centre_error(seq, R_cw, t_cw, i) -> float:
     """Distance of a camera centre from frame i's ground truth, both in the
     first camera's frame (the system's world)."""
@@ -1889,6 +2040,434 @@ def phase_loop_closing_system(device, card, loop_seq):
     return kern.launches, matrix.launches, lc_k
 
 
+def loop_scene_camera(dev):
+    return make_pinhole(LOOP_FX, LOOP_FX, LOOP_W / 2, LOOP_H / 2, LOOP_W, LOOP_H, device=dev)
+
+
+LOOP_K = np.array([[LOOP_FX, 0, LOOP_W / 2], [0, LOOP_FX, LOOP_H / 2], [0, 0, 1.0]])
+
+
+def phase_inertial_loop_map(device, card):
+    """(a) Inertial loop closing on the card, deterministic:
+    tests/test_inertial_loop.py's scene (drifted_loop_scene(inertial=True):
+    an IMU-initialized map whose drifted return leg carries drifted
+    velocities) through LoopCloser.process_keyframe with a 64-word
+    vocabulary trained by the port (K = 1 on the card), then on the CPU."""
+    inner = loop_closing.optimize_essential_graph_4dof
+
+    def run(dev):
+        atlas, out, back, descs, _ = drifted_loop_scene(slam_map, inertial=True)
+        voc = train_vocabulary(np.concatenate([descs, descs]), n_words=64, iters=2, device=dev)
+        lc = loop_closing.LoopCloser(atlas, voc, LOOP_K, camera=loop_scene_camera(dev), bf=1.0,
+                                     run_gba=False, min_consistency=2, device=dev)
+        graphs, rows = [], []
+
+        def graph_4dof(poses, edges, fixed, *a, **kw):
+            graphs.append((dict(poses), inner(poses, edges, fixed, *a, **kw)))
+            return graphs[-1][1]
+
+        loop_closing.optimize_essential_graph_4dof = graph_4dof
+        watch_loop_closer(lc, rows)
+        try:
+            reset_launch_counts()
+            for kf in out + back:
+                lc.process_keyframe(kf.kid)
+        finally:
+            loop_closing.optimize_essential_graph_4dof = inner
+        state = {k: (kf.R_cw.copy(), kf.t_cw.copy(), np.asarray(kf.velocity, np.float64))
+                 for k, kf in atlas.current.keyframes.items()}
+        return lc, rows, graphs, out, back, state
+
+    lc, rows, graphs, out, back, state = run(device)
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    launches = {"topk": kern.launches, "k1": kern.launches_by_k[1], "k2": kern.launches_by_k[2],
+                "matrix": matrix.launches}
+    check(lc.n_loops_closed == 1 and len(graphs) == 1,
+          f"phase 19a: {lc.n_loops_closed} loops closed, the 4-DoF graph ran {len(graphs)} times")
+    ez = np.array([0.0, 0.0, 1.0])
+    poses, opt = graphs[0]
+    tilt = max(float(np.linalg.norm(
+        loop_closing.sim3_mul(loop_closing.sim3_inv(opt[k]), poses[k])[1] @ ez - ez))
+        for k in poses)
+    check(tilt < 1e-6, f"phase 19a: a vertex update of the 4-DoF graph tilts z by {tilt:.2e}")
+    fd = max(float(np.linalg.norm(np.asarray(back[k].velocity) - (back[k + 1].center - back[k].center)))
+             for k in range(len(back) - 1))
+    outbound = max(float(np.linalg.norm(np.asarray(kf.velocity) - [0.4, 0.0, 0.0]))
+                   for kf in out[:3])
+    check(fd < 0.25 and outbound < 0.2,
+          f"phase 19a: velocities {fd:.4f} m/s from the corrected trajectory's differences (limit "
+          f"0.25), the outbound leg's moved {outbound:.4f} (limit 0.2)")
+    check(launches["k1"] == len(rows) and launches["k2"] >= 1,
+          f"phase 19a: launches {launches} for {len(rows)} keyframes")
+    _, cpu_rows, _, _, _, cpu_state = run("cpu")
+    worst = max(float(np.abs(a - b).max()) for k in state for a, b in zip(state[k], cpu_state[k]))
+    check(sorted(state) == sorted(cpu_state) and worst <= 1e-5
+          and [r["closed"] for r in rows] == [r["closed"] for r in cpu_rows],
+          f"phase 19a: card against CPU, poses and velocities part by {worst:.2e} (limit 1e-5)")
+    print(
+        f"phase 19a inertial loop closing, drifted inertial map: {len(rows)} keyframes "
+        f"({LOOP_W}x{LOOP_H}, IMU-initialized, velocities drifted with the poses) through "
+        f"LoopCloser.process_keyframe on {card}: loop closed at keyframe {lc.last_loop_kf_id}, the "
+        f"4-DoF essential graph over {len(opt)} vertices, the largest tilt of world z by a vertex "
+        f"update {tilt:.2e} (limit 1e-6); velocities against the corrected trajectory's "
+        f"differences {fd:.4f} m/s (limit 0.25), outbound leg moved {outbound:.4f} (limit 0.2); "
+        f"loop-closing keyframe {next(r['ms'] for r in rows if r['closed']):.1f} ms; launches "
+        f"{launches}; card against CPU: poses and velocities within {worst:.2e} (limit 1e-5)"
+    )
+    return launches
+
+
+def keyframe_ate(m, seq) -> dict:
+    kfs = sorted(m.keyframes.values(), key=lambda k: k.kid)
+    return absolute_trajectory_error(np.asarray([k.timestamp for k in kfs]),
+                                     np.asarray([k.center for k in kfs]), seq.gt_t, seq.gt_pos)
+
+
+def phase_inertial_global_ba(system, seq, card):
+    """(b) The post-loop global BA of an IMU-initialized map at full size:
+    LoopCloser._run_global_ba on phase 13's map must take the mapper's
+    converged full inertial BA; called twice, the second sweep finds the
+    fixed point."""
+    mapper, lc = system.local_mapper, system.loop_closer
+    m = system.atlas.current
+    check(m.imu_initialized, "phase 19b: phase 13's map is not IMU-initialized")
+    # Neither package marks a live map inertial (Map.is_inertial is set only
+    # where an atlas is loaded, ROADMAP F16), so a loop in phase 13's run
+    # would take the visual graph and BA; the phase marks the map as an
+    # inertial atlas's would be, as tests/test_inertial_loop.py does.
+    was_inertial = m.is_inertial
+    m.is_inertial = True
+    calls, inner = [], mapper.full_inertial_ba_converged
+
+    def converged(kf, *a, **kw):
+        calls.append(inner(kf, *a, **kw))
+        return calls[-1]
+
+    mapper.full_inertial_ba_converged = converged
+    windows = system.stats.series["lm_inertial_window"]
+    kern = reset_launch_counts()
+    ate_before = keyframe_ate(m, seq)
+    n_windows = len(windows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc._run_global_ba()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first_windows = len(windows) - n_windows
+    before = {k: kf.t_cw.copy() for k, kf in m.keyframes.items()}
+    n_windows = len(windows)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lc._run_global_ba()
+        torch.cuda.synchronize()
+        second_ms = (time.perf_counter() - t0) * 1e3
+    second_launches = len(device_kernels(prof))
+    second_windows = len(windows) - n_windows
+    mapper.full_inertial_ba_converged = inner
+    moved = max(float(np.abs(m.keyframes[k].t_cw - t).max()) for k, t in before.items())
+    ate = keyframe_ate(m, seq)
+    check(len(calls) == 2 and lc.n_gba_runs == 2,
+          f"phase 19b: the global BA took the full inertial BA {len(calls)} times of 2")
+    check(calls[1] == 1 and moved <= 1e-3,
+          f"phase 19b: the second call ran {calls[1]} sweeps and moved a keyframe {moved:.2e} m "
+          "(want 1 and <= 1e-3)")
+    check(ate["rmse"] <= ATE_LIMIT_M,
+          f"phase 19b: keyframe ATE RMSE {ate['rmse']:.4f} m after the global BA, limit {ATE_LIMIT_M}")
+    check(kern.launches == 0 and hamming_kernel.hamming_penalty_matrix.launches == 0,
+          "phase 19b: a Hamming kernel launched in the inertial BA")
+    print(
+        f"phase 19b post-loop global BA of phase 13's IMU-initialized map ({m.n_keyframes()} "
+        f"keyframes; is_inertial was {was_inertial}, set) on {card}: LoopCloser._run_global_ba -> "
+        f"full_inertial_ba_converged: "
+        f"{calls[0]} sweeps, {first_windows} inertial windows, {first_ms:.1f} ms; again: "
+        f"{calls[1]} sweep, {second_windows} windows, {second_launches} kernel launches, "
+        f"{second_ms:.1f} ms, keyframes moved at most {moved:.2e} m (limit 1e-3); keyframe ATE "
+        f"RMSE {ate_before['rmse']:.4f} m before, {ate['rmse']:.4f} m after (limit {ATE_LIMIT_M})"
+    )
+
+
+def phase_map_merge(device, card):
+    """(a) The Atlas map merge on the card, deterministic: tests/test_gba_merge.py's
+    two maps (two_map_scene) through LoopCloser.process_keyframe, the old
+    map's keyframes while it is current, then the new map's, with the global
+    BA after the weld; then the same on the CPU."""
+    def run(dev):
+        atlas, m_old, m_new, kfs_a, kfs_b, descs = two_map_scene(slam_map)
+        voc = train_vocabulary(np.concatenate([descs, descs]), n_words=64, iters=2, device=dev)
+        lc = loop_closing.LoopCloser(atlas, voc, LOOP_K, camera=loop_scene_camera(dev), bf=1.0,
+                                     run_gba=True, device=dev)
+        atlas.set_kf_database(lc.db)
+        merges, rows = [], []
+        watch_merge(lc, merges)
+        watch_loop_closer(lc, rows)
+        reset_launch_counts()
+        atlas.change_map(m_old)
+        for kf in kfs_a:
+            lc.process_keyframe(kf.kid)
+        atlas.change_map(m_new)
+        for kf in kfs_b:
+            lc.process_keyframe(kf.kid)
+        poses = {k: (kf.R_cw.copy(), kf.t_cw.copy()) for k, kf in atlas.current.keyframes.items()}
+        merge = {key: sum(x[key] for x in merges) for key in ("k2", "matrix")}
+        return lc, atlas, m_old, m_new, kfs_b, rows, merge, poses
+
+    lc, atlas, m_old, m_new, kfs_b, rows, merge, poses = run(device)
+    kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
+    launches = {"topk": kern.launches, "k1": kern.launches_by_k[1], "k2": kern.launches_by_k[2],
+                "matrix": matrix.launches}
+    check(lc.n_maps_merged == 1 and lc.n_loops_closed == 0 and lc.n_gba_runs == 1,
+          f"phase 20a: {lc.n_maps_merged} merges, {lc.n_loops_closed} loops, {lc.n_gba_runs} "
+          "global BAs")
+    check(atlas.current is m_old and m_new not in atlas.maps and atlas.n_maps() == 1
+          and sorted(lc.db.kf_bows) == sorted(m_old.keyframes),
+          "phase 20a: the emptied map was not removed or the old map is not current")
+    errors = [float(np.linalg.norm(kf.center - [0.8 + 0.4 * k, 0.0, 0.0]))
+              for k, kf in enumerate(kfs_b)]
+    check(max(errors) < 0.15, f"phase 20a: welded centres {errors} m from the truth (limit 0.15)")
+    check(merge["k2"] >= 1 and merge["matrix"] >= 1,
+          f"phase 20a: the merge launched {merge} (K = 2 and matrix)")
+    _, _, _, _, _, cpu_rows, _, cpu_poses = run("cpu")
+    worst = max(max(float(np.abs(poses[k][0] - cpu_poses[k][0]).max()),
+                    float(np.abs(poses[k][1] - cpu_poses[k][1]).max())) for k in poses)
+    check(sorted(poses) == sorted(cpu_poses) and worst <= 1e-5
+          and [r["closed"] for r in rows] == [r["closed"] for r in cpu_rows],
+          f"phase 20a: card against CPU, keyframe poses part by {worst:.2e} (limit 1e-5)")
+    merge_row = next(r for r in rows if r["closed"])
+    print(
+        f"phase 20a Atlas map merge: two maps ({LOOP_W}x{LOOP_H}; 8 keyframes, then 4 after a "
+        f"loss in a frame 0.15 rad and 0.83 m off) through LoopCloser.process_keyframe on {card}: "
+        f"merged at keyframe {merge_row['kid']} into the old map, maps left {atlas.n_maps()}, "
+        f"global BAs {lc.n_gba_runs}; welded centres at most {max(errors):.4f} m from the truth "
+        f"(limit 0.15); the merging keyframe {merge_row['ms']:.1f} ms (global BA included); "
+        f"launches {launches}, of them the merge's {merge} (K = 2 verification, matrix fusion); "
+        f"card against CPU: keyframe poses within {worst:.2e} (limit 1e-5)"
+    )
+    return launches, merge
+
+
+def phase_map_merge_system(device, card, loop_seq):
+    """(b) A merge inside the visual default System: frames 0-79 of phase
+    18b's rendered loop, 7 blank frames 1 s apart (lost past
+    time_recently_lost, so a new map starts), then frames 20-59 again with
+    the timestamps running on; the new map, whose world is frame 20's
+    camera, must weld into the old one, whose world is frame 0's."""
+    seq = loop_seq.result()
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = make_system(seq, device, vocabulary=None)
+    lc, atlas = system.loop_closer, system.atlas
+    merge, log = [], []
+    watch_merge(lc, merge)
+    for f in seq.frames[:N_MERGE_TRACKED]:
+        log.append(tracker_step(system.tracker, f, entry=system))
+    check(all(r["state"] == "OK" for r in log), "phase 20b: a frame before the loss not OK")
+    n_kf = atlas.current.n_keyframes()
+    blank = np.full_like(seq.frames[0].left, 127)
+    t = seq.frames[N_MERGE_TRACKED - 1].timestamp
+    for _ in range(N_MERGE_BLANK):
+        t += 1.0
+        log.append(tracker_step(system.tracker, types.SimpleNamespace(
+            left=blank, right=blank, timestamp=t), entry=system))
+    maps_after_loss = atlas.n_maps()
+    again, merged_at = [], None
+    revisit = range(MERGE_AGAIN_FROM, MERGE_AGAIN_FROM + N_MERGE_AGAIN)
+    for i, j in enumerate(revisit):
+        f = seq.frames[j]
+        t += 0.05
+        merged = lc.n_maps_merged
+        again.append(tracker_step(system.tracker, types.SimpleNamespace(
+            left=f.left, right=f.right, timestamp=t), entry=system))
+        if merged_at is None and lc.n_maps_merged > merged:
+            merged_at = i
+    system.shutdown()
+    check(maps_after_loss == 2 and log[-1]["state"] == "NOT_INITIALIZED",
+          f"phase 20b: after {N_MERGE_BLANK} blank frames {maps_after_loss} maps, state "
+          f"{log[-1]['state']} (a new map should start)")
+    check(all(r["state"] == "OK" for r in again), "phase 20b: a frame fed again not OK")
+    check(lc.n_maps_merged == MERGE_JAX_MERGES and atlas.n_maps() == 1 and lc.n_thread_errors == 0,
+          f"phase 20b: {lc.n_maps_merged} merges (the JAX package's reading: "
+          f"{MERGE_JAX_MERGES}), {atlas.n_maps()} maps left")
+    # the merging frame's own pose is logged in the new map's world (the
+    # tracker records the frame after the inline mapper, and so the weld, ran)
+    after = slice(merged_at + 1, None)
+    check(len(again[after]) >= 3, f"phase 20b: merged at frame {merged_at} fed again, too late")
+
+    def ate_of(js, rows):
+        return absolute_trajectory_error(
+            np.asarray([seq.frames[j].timestamp for j in js]),
+            np.asarray([-r["R"].T @ r["t"] for r in rows]), seq.gt_t, seq.gt_pos)["rmse"]
+
+    ate, ate_after = ate_of(revisit, again), ate_of(revisit[after], again[after])
+    check(ate <= MERGE_ATE_LIMIT_M,
+          f"phase 20b: ATE RMSE of the frames fed again {ate:.4f} m, limit {MERGE_ATE_LIMIT_M} "
+          f"(twice the JAX package's reading)")
+    welded = [x for x in merge if x["welded"]]
+    check(welded and welded[0]["k2"] >= 1 and welded[0]["matrix"] >= 1,
+          f"phase 20b: the merge's launches {merge}")
+    errors = [centre_error(seq, r["R"], r["t"], j) for j, r in zip(revisit, again)]
+    offset, errors = min(errors[:merged_at + 1]), errors[after]
+    check(offset > 1.0, f"phase 20b: before the merge the camera centres {offset:.4f} m from the "
+          f"truth in the old map's world (the new map's world should be offset by 1.47 m)")
+    check(max(errors) <= MERGE_CENTRE_LIMIT_M,
+          f"phase 20b: after the merge a camera centre {max(errors):.4f} m from the truth in the "
+          f"old map's world, limit {MERGE_CENTRE_LIMIT_M} (twice the JAX package's reading)")
+    print(
+        f"phase 20b Atlas map merge in System(Sensor.STEREO) with the shipped vocabulary on "
+        f"{card}: frames 0-{N_MERGE_TRACKED - 1} of the rendered loop ({n_kf} keyframes), "
+        f"{N_MERGE_BLANK} blank frames 1 s apart -> {maps_after_loss} maps, frames "
+        f"{revisit[0]}-{revisit[-1]} again: merged at frame {merged_at} fed again (the JAX "
+        f"package's reading: 1 merge, at frame 4), maps left {atlas.n_maps()}, keyframes "
+        f"{atlas.current.n_keyframes()}, global BAs {lc.n_gba_runs}; merge attempts "
+        f"{[(x['welded'], round(x['ms'], 1)) for x in merge]} (welded, ms with the global BA), "
+        f"the merging frame {again[merged_at]['ms']:.1f} ms; ATE RMSE of the frames fed again "
+        f"{ate:.4f} m (limit {MERGE_ATE_LIMIT_M}), of those after the merging frame "
+        f"{ate_after:.4f} m (the JAX package's reading {MERGE_JAX_ATE_AFTER_M}); the camera "
+        f"centres up to the merging frame at least {offset:.4f} m "
+        f"from the truth in the old map's world (the new map's offset), after it at most "
+        f"{max(errors):.4f} m (limit {MERGE_CENTRE_LIMIT_M}); the merge's launches "
+        f"K = 2 {welded[0]['k2']}, matrix {welded[0]['matrix']}; top-k kernel launches "
+        f"{kern.launches} ({dict(kern.launches_by_k)} by K), matrix kernel launches "
+        f"{matrix.launches}"
+    )
+    return kern.launches, matrix.launches, welded[0]
+
+
+def phase_loop_threads(device, card):
+    """(a) The loop-closer and global-BA threads on the card: the drifted
+    map fed through insert_keyframe from this thread to
+    LoopCloser(run_async=True), the loop closing on the closer's thread;
+    then tests/test_gba_merge.py::test_gba_off_critical_path's drifted leg,
+    its global BA on its own thread while 4 keyframes go into the map under
+    its lock."""
+    atlas, out, back, descs, drift = drifted_loop_scene(slam_map)
+    voc = train_vocabulary(np.concatenate([descs, descs]), n_words=64, iters=2, device=device)
+    kern, matrix = reset_launch_counts(), hamming_kernel.hamming_penalty_matrix
+    lc = loop_closing.LoopCloser(atlas, voc, LOOP_K, camera=loop_scene_camera(device), bf=1.0,
+                                 run_gba=True, min_consistency=2, run_async=True, device=device)
+    threads, inner = [], lc.process_keyframe
+
+    def process_keyframe(kid):
+        threads.append(threading.current_thread())
+        return inner(kid)
+
+    lc.process_keyframe = process_keyframe
+    before = drift(back)
+    t0 = time.perf_counter()
+    for kf in out + back:
+        lc.insert_keyframe(kf)
+    while len(threads) < len(out + back) or not lc._queue.empty() or lc.n_gba_runs < 1 \
+            or (lc._gba_thread is not None and lc._gba_thread.is_alive()):
+        check(time.perf_counter() - t0 < 120, "phase 21a: the closer did not finish in 120 s")
+        time.sleep(0.005)
+    closed_s = time.perf_counter() - t0
+    lc.stop()
+    check(lc.n_loops_closed == 1 and all(t is lc._thread for t in threads)
+          and not lc._thread.is_alive() and not lc._gba_thread.is_alive()
+          and lc.n_thread_errors == 0,
+          f"phase 21a: loops {lc.n_loops_closed}, threads {set(t.name for t in threads)}, "
+          f"errors {lc.n_thread_errors}")
+    after = drift(back)
+    check(after < DRIFT_RATIO * before, f"phase 21a: drift {before:.4f} -> {after:.4f} m")
+    closer_launches = {"topk": kern.launches, "k1": kern.launches_by_k[1],
+                       "k2": kern.launches_by_k[2], "matrix": matrix.launches}
+
+    atlas, kfs, pts_w, descs = noisy_leg_scene(slam_map)
+    m = atlas.current
+    e0 = mean_reprojection_error(m)
+    orig = sorted(m.keyframes)
+    gba = loop_closing.LoopCloser(atlas, None, LOOP_K, camera=loop_scene_camera(device), bf=1.0,
+                                  run_async=True, run_gba=True, device=device)
+    t0 = time.perf_counter()
+    gba._start_gba(fixed_kf_ids={kfs[0].kid})
+    check(gba._gba_thread.is_alive(), "phase 21a: the global BA thread did not start")
+    inserted_ms = []
+    for i in range(4):
+        t1 = time.perf_counter()
+        with m.lock:
+            synthetic._loop_leg(slam_map, atlas, pts_w, descs, 1, kf_x0=4.0 + 0.4 * i)
+        inserted_ms.append((time.perf_counter() - t1) * 1e3)
+        time.sleep(0.02)
+    gba._gba_thread.join(timeout=300)
+    gba_s = time.perf_counter() - t0
+    gba.stop()
+    e1 = mean_reprojection_error(m, orig)
+    check(not gba._gba_thread.is_alive() and not gba._thread.is_alive() and gba.n_gba_runs == 1
+          and gba.n_thread_errors == 0 and len(m.keyframes) == len(orig) + 4,
+          "phase 21a: the global BA thread did not finish, or a thread failed")
+    check(e1 < 0.5 * e0, f"phase 21a: reprojection error {e0:.3f} -> {e1:.3f} px (limit 0.5 x)")
+    print(
+        f"phase 21a threads on {card}: the drifted map's 9 keyframes through "
+        f"insert_keyframe -> the closer's thread: loop closed at keyframe {lc.last_loop_kf_id}, "
+        f"global BA on its own thread, drift {before:.4f} -> {after:.4f} m, all done "
+        f"{closed_s:.2f} s after the first insert, launches {closer_launches}; a drifted "
+        f"12-keyframe leg's global BA on its thread while 4 keyframes went into the map under "
+        f"its lock (each insert waited {max(inserted_ms):.1f} ms at most): joined after "
+        f"{gba_s:.2f} s, reprojection error {e0:.3f} -> {e1:.3f} px (limit 0.5 x); threads "
+        f"joined, errors {lc.n_thread_errors + gba.n_thread_errors}"
+    )
+    return closer_launches
+
+
+def phase_system_inertial_async(device, seq, card):
+    """(b) The stereo-inertial System in its default configuration with
+    mapping on its own thread: the tracker's thread, the mapper's and the
+    loop closer's (and a global BA's, if a loop closes) share the card and
+    the map."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = make_inertial_system(seq, device, vocabulary=None, async_mapping=True)
+    mapper, lc = system.local_mapper, system.loop_closer
+    inserted, inner = [], mapper.insert_keyframe
+
+    def insert_keyframe(kf):
+        inserted.append(kf.kid)
+        inner(kf)
+
+    mapper.insert_keyframe = insert_keyframe
+    times, t_prev, depth = [], -1.0, 0
+    for i, f in enumerate(seq.frames[:N_ASYNC_INERTIAL_FRAMES]):
+        n = len(inserted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.track_stereo(f.left, f.right, f.timestamp, imu=imu_between(seq, t_prev, f.timestamp))
+        times.append(((time.perf_counter() - t0) * 1e3, len(inserted) > n))
+        t_prev = f.timestamp
+        depth = max(depth, mapper.queue_size())
+        check(system.tracking_state.name == "OK",
+              f"phase 21b frame {i}: state {system.tracking_state.name}")
+    t0 = time.perf_counter()
+    while not (mapper.is_idle() and lc._queue.empty()):
+        check(time.perf_counter() - t0 < 120, "phase 21b: the queues did not drain in 120 s")
+        time.sleep(0.005)
+    drain = time.perf_counter() - t0
+    system.shutdown()
+    alive = [name for name, t in (("mapper", mapper._thread), ("loop closer", lc._thread),
+                                  ("global BA", lc._gba_thread)) if t is not None and t.is_alive()]
+    check(not alive and mapper.queue_size() == 0, f"phase 21b: alive after shutdown: {alive}")
+    check(lc.n_thread_errors == 0, f"phase 21b: {lc.n_thread_errors} thread errors")
+    check(system.atlas.current.imu_initialized, "phase 21b: the IMU never initialized")
+    processed = int(sum(system.stats.series["lm_keyframes"]))
+    check(processed == len(inserted) >= 6, f"{processed} keyframes processed, {len(inserted)} inserted")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == N_ASYNC_INERTIAL_FRAMES and ate["rmse"] <= ATE_LIMIT_M,
+          f"phase 21b: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M}")
+    plain = [ms for ms, kf in times[2:] if not kf]
+    keyframed = [ms for ms, kf in times[1:] if kf]
+    print(
+        f"phase 21b stereo-inertial system, async mapping, the shipped vocabulary: "
+        f"{N_ASYNC_INERTIAL_FRAMES} frames at {W}x{H} with IMU on {card}: every frame OK, IMU "
+        f"initialized, ms/frame median {np.median(plain):.3f}, p90 {np.percentile(plain, 90):.3f} "
+        f"({len(plain)} frames without a keyframe), keyframe frames {[round(x, 1) for x in keyframed]}; "
+        f"keyframes inserted {len(inserted)}, processed {processed}, deepest mapper queue {depth}, "
+        f"queues drained {drain * 1e3:.1f} ms after the last frame; the loop closer: loops "
+        f"{lc.n_loops_closed}, merges {lc.n_maps_merged}, global BAs {lc.n_gba_runs}; no thread alive after shutdown, thread errors {lc.n_thread_errors}; "
+        f"ATE RMSE {ate['rmse']:.4f} m (limit {ATE_LIMIT_M}); top-k kernel launches "
+        f"{kern.launches} ({dict(kern.launches_by_k)} by K), matrix kernel launches "
+        f"{matrix.launches} (all threads)"
+    )
+    return kern.launches, matrix.launches
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -1917,7 +2496,7 @@ def main():
 
 
 def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
-    """Phases 2-18, then the kernels line and the last lines; the arguments
+    """Phases 2-21, then the kernels line and the last lines; the arguments
     after `t_start` are the futures of the rendered sequences."""
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
@@ -1933,6 +2512,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
     # 3. kernels against plain
     matrix_rows, matrix_err = phase_matrix_kernel(device, card)
     topk_rows, topk_err, mismatches = phase_topk_kernel(device, card)
+    chunked, chunked_bad = phase_assign_chunked(device, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 1-3")
 
     # 4. hot path, 5. card against CPU
@@ -1969,7 +2549,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
     seq_i = inertial_seq.result()
     print(f"rendered {N_INERTIAL_FRAMES} stereo frames at {W}x{H} with their IMU stream "
           f"({len(seq_i.imu_t)} samples; waited {time.perf_counter() - t0:.1f} s for them)")
-    inertial_launches, inertial_matrix, inertial_rec = phase_system_inertial(device, seq_i, card)
+    inertial_launches, inertial_matrix, inertial_rec, inertial_system, inertial_lc = \
+        phase_system_inertial(device, seq_i, card)
     phase_inertial_card_vs_cpu(inertial_rec)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 13-14")
 
@@ -1986,6 +2567,21 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
     loop_all, loop_matrix, loop_lc = phase_loop_closing_system(device, card, loop_seq)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 18")
 
+    # 19. inertial loop closing (a: a drifted inertial map, b: the post-loop
+    # global BA of phase 13's map), 20. the Atlas map merge, 21. the threads
+    # (a: the closer's and the global BA's, b: the stereo-inertial System with
+    # async mapping)
+    inertial_loop = phase_inertial_loop_map(device, card)
+    phase_inertial_global_ba(inertial_system, seq_i, card)
+    del inertial_system
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 19")
+    merge_all, merge = phase_map_merge(device, card)
+    merge_sys_all, merge_sys_matrix, merge_sys = phase_map_merge_system(device, card, loop_seq)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 20")
+    threads_lc = phase_loop_threads(device, card)
+    async_i_launches, async_i_matrix = phase_system_inertial_async(device, seq_i, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 21")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -1999,7 +2595,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "replaces": "fasttrack_tpu/ops/pallas_kernels.py:44",
             "launches": hot_launches + fused_launches + tracker_launches + system_launches
             + inertial_launches + toggle_launches + host_i_launches + reloc_all
-            + map_launches["topk"] + loop_all,
+            + map_launches["topk"] + loop_all + inertial_loop["topk"] + merge_all["topk"]
+            + merge_sys_all + threads_lc["topk"] + async_i_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -2013,6 +2610,16 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches_loop_closing": map_launches["k1"] + map_launches["k2"]
             + loop_lc["k1"] + loop_lc["k2"],
             "launches_place_recognition_phases": reloc_all + map_launches["topk"] + loop_all,
+            # phases 19-21: the inertial loop (19a; 19b launches none), the
+            # map merge (20a) and the part of it that _merge_maps made (its
+            # K = 2 verification), the threads (21a) and the stereo-inertial
+            # System with async mapping (21b, all its threads)
+            "launches_inertial_loop_closing": inertial_loop["topk"],
+            "launches_map_merge_phase": merge_all["topk"],
+            "launches_map_merge_system": merge_sys_all,
+            "launches_merge": merge["k2"] + merge_sys["k2"],
+            "launches_loop_threads": threads_lc["topk"],
+            "launches_system_inertial_async": async_i_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -2028,11 +2635,16 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "k2": {"shape": [1024, 1024], "k": 2, "launches_tracker": tracker_k2,
                    **{key: top2[key] for key in timed + (
                        "replaced_ms", "matrix_plus_torch_topk_ms")}},
-            # K = 1: the flat vocabulary's quantization (phase 18a's loop closer)
+            # K = 1: the flat vocabulary's quantization (the loop closers of
+            # phases 18a, 19a, 20a and 21a), and past MAX_N words in chunks
             "k1": {"shape": [1024, 4096], "k": 1,
-                   "launches_loop_closing": map_launches["k1"] + loop_lc["k1"],
+                   "launches_loop_closing": map_launches["k1"] + loop_lc["k1"]
+                   + inertial_loop["k1"] + merge_all["k1"] + threads_lc["k1"],
+                   "launches_system_inertial": inertial_lc["k1"],
                    **{key: top1[key] for key in timed + (
-                       "replaced_ms", "matrix_plus_torch_argmin_ms")}},
+                       "replaced_ms", "matrix_plus_torch_argmin_ms")},
+                   "chunked": {"shape": list(CHUNKED_SHAPE), "mismatches": chunked_bad,
+                               **chunked}},
             # its third: the local mapper's triangulation, 10 neighbour keyframes stacked
             "triangulation": {"shape": [EPI_ROWS, 1024], "k": TOP_K,
                               "launches_system": system_epi,
@@ -2047,7 +2659,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             # the system paths alone launch it (map-point fusion)
             "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix
             + inertial_matrix + toggle_matrix + host_i_matrix + reloc_matrix
-            + map_launches["matrix"] + loop_matrix,
+            + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
+            + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -2060,6 +2673,13 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches_loop_closing": map_launches["matrix"] + loop_lc["matrix"],
             "launches_place_recognition_phases": reloc_matrix + map_launches["matrix"]
             + loop_matrix,
+            "launches_inertial_loop_closing": inertial_loop["matrix"],
+            "launches_map_merge_phase": merge_all["matrix"],
+            "launches_map_merge_system": merge_sys_matrix,
+            # the weld's fusion, one per target keyframe (phases 20a and 20b)
+            "launches_merge": merge["matrix"] + merge_sys["matrix"],
+            "launches_loop_threads": threads_lc["matrix"],
+            "launches_system_inertial_async": async_i_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -2075,7 +2695,10 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
           "a kernel was not launched on the stereo-inertial path")
     check(reloc_all > 0 and reloc_matrix > 0 and map_launches["k1"] > 0 and loop_all > 0
           and loop_matrix > 0, "a kernel was not launched on the place-recognition paths")
-    print(f"chip_smoke: all 18 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(inertial_loop["k1"] > 0 and inertial_loop["k2"] > 0 and merge["k2"] > 0
+          and merge["matrix"] > 0 and threads_lc["topk"] > 0 and async_i_launches > 0
+          and async_i_matrix > 0, "a kernel was not launched on the paths of phases 19-21")
+    print(f"chip_smoke: all 21 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -9,10 +9,10 @@ Usage:
       [--device cuda:0|cpu]
 
 Runs on the CUDA device unless --device says otherwise, with the shipped
-vocabulary (loop closing and relocalization), as the JAX example does;
-with --imu or --async-mapping it runs without place recognition and says
-so on stderr (ROADMAP M7b). The settings must describe a rectified pinhole
-pair. --imu runs the stereo-inertial system on
+vocabulary (loop closing, the Atlas map merge and relocalization) in
+every configuration, --imu and --async-mapping included, as the JAX
+example does. The settings must describe a rectified pinhole pair. --imu
+runs the stereo-inertial system on
 the sequence's mav0/imu0/data.csv with the settings' IMU block (the
 samples between consecutive frames go with the later one), and writes
 whether the IMU initialized into ate.json beside the ATE; without that file
@@ -58,17 +58,9 @@ def main():
         seq = EurocSequence(args.sequence, args.timestamps)
         if args.imu and seq.imu is None:
             sys.exit(f"--imu: {args.sequence} has no mav0/imu0/data.csv")
-        # the default vocabulary (place recognition on), as the JAX example;
-        # inertial loop closing and the loop-closer threads are not ported
-        # yet (ROADMAP M7b), so --imu and --async-mapping run without it
-        vocabulary = None
-        if args.imu or args.async_mapping:
-            vocabulary = False
-            print("--imu / --async-mapping: no place recognition (vocabulary=False) until "
-                  "ROADMAP M7b", file=sys.stderr)
+        # the default vocabulary (place recognition on), as the JAX example
         system = System(settings, sensor, kernel_config=kcfg,
-                        async_mapping=args.async_mapping, vocabulary=vocabulary,
-                        device=args.device)
+                        async_mapping=args.async_mapping, device=args.device)
     except NotImplementedError as e:
         sys.exit(str(e))
 

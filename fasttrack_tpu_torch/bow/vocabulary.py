@@ -10,9 +10,10 @@ Hamming distance (ROADMAP K14). On a CUDA tensor it is one launch of the
 fused Hamming + top-K kernel (ops/hamming_kernel.py) at K = 1 with zero
 penalties: the kernel orders equal distances by ascending column, so its
 K = 1 is argmin's first index. The kernel holds at most
-`hamming_kernel.MAX_N` key rows, which is the shipped flat vocabulary's
-4,096 words; a larger vocabulary on the card raises. On a CPU tensor
-`_assign` computes the plain version at any size. The tree vocabulary is
+`hamming_kernel.MAX_N` key rows (the shipped flat vocabulary's 4,096
+words), so a wider vocabulary is quantized in chunks of MAX_N words, one
+launch each, whose minima are merged on the device in word order. On a CPU
+tensor `_assign` computes the plain version at any size. The tree vocabulary is
 quantized on the host (the port's native popcount library), as in the JAX
 package.
 
@@ -135,22 +136,28 @@ def _assign(descs: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     """The nearest word of every descriptor: (N, 256) and (W, 256) int8 +-1
     on one device -> (N,) int32, the lowest word index among equal
     distances. CPU tensors: the plain version. CUDA tensors: one launch of
-    the top-K kernel at K = 1 with zero penalties, W <= MAX_N words."""
+    the top-K kernel at K = 1 with zero penalties per chunk of at most
+    MAX_N words; the chunks' minima are merged in word order, a later chunk
+    winning only on a strictly smaller distance, so the result is
+    argmin's first index at any width."""
     if descs.device.type == "cpu":
         return _assign_reference(descs, words)
-    if words.shape[0] > hamming_kernel.MAX_N:
-        raise ValueError(
-            f"the top-K kernel holds at most {hamming_kernel.MAX_N} words (MAX_N), this "
-            f"vocabulary has {words.shape[0]}: quantize it on the CPU (device='cpu')"
+    descs = descs.contiguous()
+    q_pen = torch.zeros(descs.shape[0], dtype=torch.float32, device=descs.device)
+    best_d = best_i = None
+    for c0 in range(0, words.shape[0], hamming_kernel.MAX_N):
+        chunk = words[c0:c0 + hamming_kernel.MAX_N].contiguous()
+        d, i = hamming_kernel.hamming_penalty_topk(
+            descs, chunk, q_pen,
+            torch.zeros(chunk.shape[0], dtype=torch.float32, device=descs.device), 1,
         )
-
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.float32, device=descs.device)
-
-    _, idx = hamming_kernel.hamming_penalty_topk(
-        descs.contiguous(), words.contiguous(), zeros(descs.shape[0]), zeros(words.shape[0]), 1,
-    )
-    return idx[:, 0].to(torch.int32)
+        d, i = d[:, 0], i[:, 0].to(torch.int32) + c0
+        if best_d is None:
+            best_d, best_i = d, i
+        else:
+            better = d < best_d
+            best_d, best_i = torch.where(better, d, best_d), torch.where(better, i, best_i)
+    return best_i
 
 
 def _assign_np(descs: np.ndarray, words: np.ndarray, device) -> np.ndarray:

@@ -316,25 +316,99 @@ def _loop_leg(slam_map, atlas, pts_w, descs, n_kf, kf_x0=0.0, world_T=None, max_
     return kfs
 
 
-def drifted_loop_scene(slam_map, seed=0):
-    """(atlas, outbound keyframes, return keyframes, descriptors, drift): an
-    outbound leg of 6 keyframes with clean poses over a 300-point cloud, and
-    a return leg of 3 keyframes over the same places whose poses and points
-    carry a drift of 0.06 rad and (0.25, -0.15, 0.1); `drift(kfs)` is the
-    largest distance of the return leg's camera centres from the truth."""
+def _loop_cloud(seed):
+    """The 300-point cloud and its +-1 descriptors of the loop scenes."""
     rng = np.random.default_rng(seed)
     pts_w = np.stack([rng.uniform(-3, 3, 300), rng.uniform(-2, 2, 300),
                       rng.uniform(5, 9, 300)], -1)
     descs = 2 * rng.integers(0, 2, size=(300, 256)).astype(np.uint8).astype(np.int8) - 1
+    return pts_w, descs
+
+
+def _rot_z(th):
+    return np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+
+
+def drifted_loop_scene(slam_map, seed=0, inertial=False):
+    """(atlas, outbound keyframes, return keyframes, descriptors, drift): an
+    outbound leg of 6 keyframes with clean poses over a 300-point cloud, and
+    a return leg of 3 keyframes over the same places whose poses and points
+    carry a drift of 0.06 rad and (0.25, -0.15, 0.1); `drift(kfs)` is the
+    largest distance of the return leg's camera centres from the truth.
+
+    With `inertial=True` the map is inertial and IMU-initialized and the
+    keyframes (1 s apart, 0.4 along x) carry velocities consistent with
+    their stored frames: (0.4, 0, 0) on the outbound leg, that velocity
+    rotated by the drift on the return leg."""
+    pts_w, descs = _loop_cloud(seed)
     atlas = slam_map.Atlas()
     out = _loop_leg(slam_map, atlas, pts_w, descs, 6)
-    th = 0.06
-    Rd = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+    Rd = _rot_z(0.06)
     back = _loop_leg(slam_map, atlas, pts_w, descs, 3, kf_x0=0.4,
                      world_T=(Rd, np.array([0.25, -0.15, 0.1])))
+    if inertial:
+        m = atlas.current
+        m.is_inertial = m.imu_initialized = True
+        v = np.array([0.4, 0.0, 0.0])
+        for kf in out:
+            kf.velocity = v.copy()
+        for kf in back:
+            kf.velocity = Rd @ v
 
     def drift(kfs):
         return max(np.linalg.norm(kf.center - np.array([0.4 + 0.4 * k, 0, 0]))
                    for k, kf in enumerate(kfs))
 
     return atlas, out, back, descs, drift
+
+
+def two_map_scene(slam_map):
+    """(atlas, old map, new map, old keyframes, new keyframes, descriptors):
+    tracking, a loss, then a new map over the same places. The old map has
+    8 keyframes 0.4 apart along x over a 300-point cloud; then
+    `atlas.create_new_map()` and 4 keyframes from x = 0.8 over the same
+    cloud and descriptors, with their own points, in a frame offset from
+    the old one by a 0.15 rad yaw and (0.7, -0.4, 0.2). The new keyframes'
+    true camera centres in the old frame are (0.8 + 0.4 k, 0, 0)."""
+    pts_w, descs = _loop_cloud(0)
+    atlas = slam_map.Atlas()
+    m_old = atlas.current
+    kfs_a = _loop_leg(slam_map, atlas, pts_w, descs, 8)
+    m_new = atlas.create_new_map()
+    kfs_b = _loop_leg(slam_map, atlas, pts_w, descs, 4, kf_x0=0.8,
+                      world_T=(_rot_z(0.15), np.array([0.7, -0.4, 0.2])))
+    return atlas, m_old, m_new, kfs_a, kfs_b, descs
+
+
+def noisy_leg_scene(slam_map):
+    """(atlas, keyframes, cloud, descriptors): tests/test_gba_merge.py's
+    drifted straight leg for the global BA, 12 keyframes over the 300-point
+    cloud whose k-th pose carries a translation error of 0.01 k times a
+    standard normal draw (points exact)."""
+    rng = np.random.default_rng(0)
+    pts_w, descs = _loop_cloud(1)
+    atlas = slam_map.Atlas()
+    kfs = _loop_leg(slam_map, atlas, pts_w, descs, 12)
+    for k, kf in enumerate(kfs):
+        kf.set_pose(kf.R_cw, kf.t_cw + rng.normal(size=3) * 0.01 * k)
+    return atlas, kfs, pts_w, descs
+
+
+def mean_reprojection_error(m, kf_ids=None) -> float:
+    """Mean pixel distance between the loop scenes' keypoints and their map
+    points projected through the keyframes' poses (LOOP_FX, LOOP_W, LOOP_H),
+    over the keyframes `kf_ids` (default: all) and points in front by 0.5."""
+    errs = []
+    for kid in (m.keyframes if kf_ids is None else kf_ids):
+        kf = m.keyframes[kid]
+        for fi, mid in enumerate(kf.mp_ids):
+            mp = m.mappoints.get(int(mid)) if mid >= 0 else None
+            if mp is None:
+                continue
+            Xc = kf.R_cw @ mp.position + kf.t_cw
+            if Xc[2] < 0.5:
+                continue
+            uv = np.array([LOOP_FX * Xc[0] / Xc[2] + LOOP_W / 2,
+                           LOOP_FX * Xc[1] / Xc[2] + LOOP_H / 2])
+            errs.append(np.linalg.norm(uv - kf.kp_uv[fi]))
+    return float(np.mean(errs))

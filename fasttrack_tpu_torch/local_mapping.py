@@ -27,14 +27,17 @@ chain swept in overlapping windows), and the inertial keyframe-cull rules.
 The inertial window is solved in `INERTIAL_SOLVE_DTYPE`.
 
 With a `loop_closer` (loop_closing.LoopCloser) the mapper hands it every
-keyframe it has processed, inline, as the JAX package does. Left out, each
-raising NotImplementedError with its ROADMAP item: `monocular` with its
-scale refinement (M9), a loop closer on the mapper's thread and the
-converged full inertial BA of the post-loop global BA (M7b), `mesh` (M10).
+keyframe it has processed, as the JAX package does: inline, or with
+`run_async=True` from the mapping thread into the closer's queue. The
+closer's post-loop global BA of an IMU-initialized map is this mapper's
+`full_inertial_ba_converged`. Left out, each raising NotImplementedError
+with its ROADMAP item: `monocular` with its scale refinement (M9), `mesh`
+(M10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -116,10 +119,6 @@ class LocalMapper:
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
         if monocular:
             raise NotImplementedError("monocular mapping is not ported yet (ROADMAP M9)")
-        if loop_closer is not None and run_async:
-            raise NotImplementedError(
-                "loop closing on the mapping thread is not ported yet (ROADMAP M7b)"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "bundle adjustment sharded over a device mesh is not ported yet (ROADMAP M10)"
@@ -633,28 +632,57 @@ class LocalMapper:
         chain = self._temporal_chain(kf, max_len=window + 1)
         self._inertial_window_ba(chain, window, n_anchors=4)
 
-    def _full_inertial_ba(self, kf: KeyFrame, window: int = 8):
+    def _full_inertial_ba(self, kf: KeyFrame, window: int = 8, should_abort=None, lock=None):
         """Optimizer::FullInertialBA (Optimizer.cc:392), staged from
         LocalMapping.cc:181-242: polish the WHOLE temporal chain after IMU
         initialization as overlapping fixed-shape inertial windows swept
         along the chain (each window anchors on the previous window's last
-        optimized state), like the visual global BA's block sweeps."""
-        chain = self._temporal_chain(kf, max_len=100000)
+        optimized state), like the visual global BA's block sweeps.
+        `should_abort` is polled between windows; with a `lock` each window
+        takes it (the post-loop global BA on its own thread), without one
+        the caller holds the map."""
+        hold = (lambda: lock) if lock is not None else contextlib.nullcontext
+        with hold():
+            chain = self._temporal_chain(kf, max_len=100000)
         self.stats.record_count("lm_full_inertial_bas", 1)
         if len(chain) <= window + 1:
-            self._inertial_window_ba(chain, window)
+            with hold():
+                self._inertial_window_ba(chain, window)
             return
         step = max(window - 1, 1)
         for start in range(0, len(chain) - 2, step):
+            if should_abort is not None and should_abort():
+                return
             seg = chain[start:start + window + 1]
             if len(seg) >= 3:
-                self._inertial_window_ba(seg, window)
+                with hold():
+                    self._inertial_window_ba(seg, window)
 
-    def full_inertial_ba_converged(self, kf: KeyFrame, *args, **kwargs) -> int:
-        raise NotImplementedError(
-            "the converged full inertial BA of the post-loop global BA is not ported "
-            "yet (ROADMAP M7b)"
-        )
+    def full_inertial_ba_converged(self, kf: KeyFrame, window: int = 8, max_rounds: int = 4,
+                                   tol: float = 1e-4, should_abort=None, lock=None) -> int:
+        """Iterate the forward window sweep until the chain stops moving: the
+        swept approximation of the reference's single joint FullInertialBA
+        solve (Optimizer.cc:392). One forward pass only carries a loop
+        correction a window at a time, so the sweep repeats until the
+        largest pose change across the chain falls under `tol` (or
+        `max_rounds`). The inertial branch of the post-loop global BA
+        (LoopClosing.cc:2275-2280). Returns the number of sweeps run."""
+        rounds = 0
+        for _ in range(max_rounds):
+            if should_abort is not None and should_abort():
+                break
+            chain = self._temporal_chain(kf, max_len=100000)
+            before = {k.kid: (k.R_cw.copy(), k.t_cw.copy()) for k in chain}
+            self._full_inertial_ba(kf, window, should_abort=should_abort, lock=lock)
+            rounds += 1
+            delta = 0.0
+            for k in chain:
+                R0, t0 = before[k.kid]
+                delta = max(delta, float(np.abs(k.t_cw - t0).max()),
+                            float(np.abs(k.R_cw - R0).max()))
+            if delta < tol:
+                break
+        return rounds
 
     def _inertial_window_ba(self, chain, window: int = 8, n_anchors: int = 0):
         """One inertial window: `chain`'s last window + 1 keyframes (the

@@ -1,12 +1,26 @@
-"""Loop closing in the active map (src/LoopClosing.cc).
+"""Loop closing and the Atlas map merge (src/LoopClosing.cc).
 
-Port of fasttrack_tpu/loop_closing.py, synchronous. Per keyframe
-(LoopClosing::Run :90-309): a BoW place query that excludes the covisible
-neighbourhood, temporal consistency, geometric verification by descriptor
-matching and Sim3/SE3 RANSAC (NewDetectCommonRegions ->
-DetectCommonRegionsFromBoW, :324/:578), then CorrectLoop (:969): the Sim3
-correction propagated over the current covisible group, duplicate map
-points fused, the essential graph optimized, and the global BA run inline.
+Port of fasttrack_tpu/loop_closing.py. Per keyframe (LoopClosing::Run
+:90-309): a BoW place query over every Atlas map that excludes the
+covisible neighbourhood, temporal consistency, geometric verification by
+descriptor matching and Sim3/SE3 RANSAC (NewDetectCommonRegions ->
+DetectCommonRegionsFromBoW, :324/:578). A candidate in the active map runs
+CorrectLoop (:969): the Sim3 correction propagated over the current
+covisible group, duplicate map points fused, the essential graph optimized
+and the global BA run; in a map marked inertial (`Map.is_inertial`, which
+no live run sets, here or in the JAX package: ROADMAP F16) and IMU-initialized,
+the gravity-preserving 4-DoF graph and the mapper's converged full
+inertial BA. A candidate in another map welds the active map into it (MergeLocal,
+:1215): the whole map moves through the world-to-world Sim3, duplicates
+are fused both ways, the essential graph relaxes the union, the old map
+becomes current and the emptied one leaves the Atlas.
+
+Synchronous by default (every keyframe processed when it is inserted, the
+global BA inline); with `run_async=True` a loop-closer thread takes the
+keyframes from a queue under the map lock, and each global BA runs on a
+thread of its own that takes the map lock per block and is aborted by a
+newer correction (LoopClosing.cc:2268-2512). An exception on either thread
+is logged and counted in `n_thread_errors`.
 
 What runs on the device: the descriptor match of the two keyframes' map
 points (`match_fisheye`, one launch of the fused Hamming top-K kernel at
@@ -15,19 +29,16 @@ vocabulary is quantized on the host), the Sim3 refinement
 (optim.sim3_opt), the fusion searches (one launch of the matrix kernel per
 target keyframe, local_mapping.fuse_mappoints_into) and the global BA's
 windows (ba_assembly.global_bundle_adjustment, float64 as the local BA).
-The projection search of SearchBySim3 and the essential graph run on the
+The projection search of SearchBySim3 and the essential graphs run on the
 host, as in the JAX package.
-
-Left out, each raising NotImplementedError that names ROADMAP M7b: the
-loop-closer and global-BA threads (`run_async=True`), a candidate in
-another Atlas map (the map merge, `_merge_maps`), and the inertial
-branches (the 4-DoF essential graph and the full inertial BA of an
-IMU-initialized map).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import queue
+import threading
 
 import numpy as np
 
@@ -46,14 +57,15 @@ from fasttrack_tpu_torch.local_mapping import fuse_mappoints_into
 from fasttrack_tpu_torch.nputils import device_fetch, orthonormalize
 from fasttrack_tpu_torch.ops.host_kernels import host_search_by_projection
 from fasttrack_tpu_torch.ops.stereo_match import match_fisheye
-from fasttrack_tpu_torch.optim.pose_graph import optimize_essential_graph, sim3_inv, sim3_mul
+from fasttrack_tpu_torch.optim.pose_graph import (
+    optimize_essential_graph,
+    optimize_essential_graph_4dof,
+    sim3_inv,
+    sim3_mul,
+)
 from fasttrack_tpu_torch.optim.sim3_opt import optimize_sim3
 from fasttrack_tpu_torch.optim.sim3_solver import solve_sim3
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP M7b)")
 
 
 class LoopCloser:
@@ -74,8 +86,6 @@ class LoopCloser:
         n_levels: int = 8,
         device=None,              # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if run_async:
-            raise _not_ported("the loop-closer and global-BA threads (run_async=True)")
         self.device = resolve(device)
         self.atlas = atlas
         self.voc = vocabulary
@@ -86,7 +96,9 @@ class LoopCloser:
         self.db = KeyFrameDatabase()
         self._consistency: dict[int, int] = {}  # candidate group -> count
         self.n_loops_closed = 0
+        self.n_maps_merged = 0
         self.n_gba_runs = 0
+        self.n_thread_errors = 0  # exceptions on the loop-closer and GBA threads
         self.last_loop_kf_id = -1
         self.run_gba = run_gba
         self.camera = None
@@ -98,14 +110,77 @@ class LoopCloser:
         self.n_levels = n_levels
         self.inv_sigma2 = 1.0 / (scale_factor ** (2 * np.arange(n_levels)))
         self.abort_gba = False    # mbStopGBA: a new KF interrupts a running GBA
+        self._gba_thread = None   # RunGlobalBundleAdjustment thread
+        self.run_async = run_async
+        self._queue: queue.Queue = queue.Queue()
+        self._stop = False
+        self._thread = None
+        if run_async:
+            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread.start()
 
     def insert_keyframe(self, kf: KeyFrame):
         self.abort_gba = True  # LoopClosing.cc InsertKeyFrame sets mbStopGBA
-        self.process_keyframe(kf.kid)
+        if self.run_async:
+            self._queue.put(kf.kid)
+        else:
+            self.process_keyframe(kf.kid)
 
     def stop(self):
-        """System::Shutdown's RequestFinish. The synchronous closer has no
-        thread to stop: every keyframe was processed when it was inserted."""
+        """System::Shutdown's RequestFinish: abort and join a running global
+        BA (30 s), then end and join the loop-closer thread (10 s), and a
+        global BA its last keyframe may have started. Keyframes still queued
+        are not processed, as in the JAX package."""
+        self._stop = True
+        self._join_gba()
+        if self._thread is not None:
+            self._queue.put(None)
+            self._thread.join(timeout=10)
+            self._join_gba()
+
+    def _join_gba(self):
+        if self._gba_thread is not None and self._gba_thread.is_alive():
+            self.abort_gba = True
+            self._gba_thread.join(timeout=30)
+
+    def _thread_failed(self, what: str):
+        self.n_thread_errors += 1
+        logging.getLogger(__name__).exception("%s failed", what)
+
+    def _start_gba(self, fixed_kf_ids=None):
+        """Run the post-loop or post-merge global BA: inline when
+        synchronous; when async, on a thread of its own that takes the map
+        lock per block (the reference's spawned RunGlobalBundleAdjustment,
+        LoopClosing.cc:969 -> :2268), so the closer keeps taking keyframes
+        and tracking never waits for the whole BA. A newer correction
+        aborts and joins the running one (mbStopGBA)."""
+        if not self.run_async:
+            self._run_global_ba(fixed_kf_ids)
+            return
+        self._join_gba()
+        m = self.atlas.current
+
+        def worker():
+            try:
+                self._run_global_ba(fixed_kf_ids, lock=m.lock)
+            except Exception:
+                self._thread_failed("the global BA thread")
+
+        self._gba_thread = threading.Thread(target=worker, daemon=True)
+        self._gba_thread.start()
+
+    def _run(self):
+        """The loop-closer thread. An exception ends it, as in the JAX
+        package, and is logged and counted."""
+        try:
+            while not self._stop:
+                kid = self._queue.get()
+                if kid is None:
+                    break
+                with self.atlas.current.lock:
+                    self.process_keyframe(kid)
+        except Exception:
+            self._thread_failed("the loop-closer thread")
 
     # ------------------------------------------------------------------ core
     @staticmethod
@@ -118,14 +193,29 @@ class LoopCloser:
             g.velocity = sc * (Rc @ np.asarray(g.velocity, np.float64))
 
     def _optimize_graph(self, m, poses, edges, fixed):
-        """The Sim3/SE3 essential graph (Optimizer::OptimizeEssentialGraph);
-        an IMU-initialized map would take the 4-DoF graph
-        (LoopClosing.cc:295-300), which is M7b's."""
+        """The gravity-preserving 4-DoF graph for an IMU-initialized map
+        (LoopClosing.cc:295-300 -> Optimizer.cc:5292), the Sim3/SE3 graph
+        (Optimizer::OptimizeEssentialGraph) otherwise."""
         if m.is_inertial and m.imu_initialized:
-            raise _not_ported("the 4-DoF essential graph of an inertial map")
+            return optimize_essential_graph_4dof(poses, edges, fixed)
         return optimize_essential_graph(
             poses, edges, fixed, fix_scale=self.fix_scale, iterations=10
         )
+
+    def _refresh_tracker_anchor(self, m):
+        """Re-derive the tracker's last-keyframe body state from the
+        corrected keyframe (the reference's mbMapUpdated re-anchor:
+        PredictStateIMU must start from the corrected pose and velocity)."""
+        tracker = getattr(self, "tracker", None)
+        if tracker is None or not tracker.use_imu:
+            return
+        kid = tracker.last_kf_id
+        kf = m.keyframes.get(kid) if kid is not None else None
+        if kf is None or kf.velocity is None:
+            return
+        R_wb, p_w = tracker._body_from_cam(kf.R_cw, kf.t_cw)
+        tracker.last_kf_state = (R_wb, p_w, np.asarray(kf.velocity, np.float64))
+        tracker.v_w = np.asarray(kf.velocity, np.float64)
 
     def _bow(self, kf: KeyFrame) -> dict:
         if kf.bow_vec is None:
@@ -141,11 +231,11 @@ class LoopCloser:
         return None, None
 
     def process_keyframe(self, kf_id: int) -> bool:
-        """Returns True if a loop was closed on this keyframe. Candidates are
-        searched across all Atlas maps (NewDetectCommonRegions,
-        LoopClosing.cc:324): one in the active map triggers CorrectLoop; one
-        in another map would trigger the Atlas merge (MergeLocal,
-        LoopClosing.cc:1215), which raises (M7b)."""
+        """Returns True if a loop was closed (or a map merge welded) on this
+        keyframe. Candidates are searched across all Atlas maps
+        (NewDetectCommonRegions, LoopClosing.cc:324): one in the active map
+        triggers CorrectLoop; one in another map triggers the Atlas merge
+        (MergeLocal, LoopClosing.cc:1215)."""
         m = self.atlas.current
         kf = m.keyframes.get(kf_id)
         if kf is None:
@@ -182,11 +272,11 @@ class LoopCloser:
                 new_consistency[g] = max(new_consistency.get(g, 0), hit)
             if hit < self.min_consistency:
                 continue
-            if cand_map is not m:
-                raise _not_ported(
-                    f"the Atlas map merge (keyframe {kf_id} matches keyframe {cand_id} of "
-                    "another map)")
-            if self._verify_and_correct(kf, cand_id):
+            if cand_map is m:
+                done = self._verify_and_correct(kf, cand_id)
+            else:
+                done = self._merge_maps(kf, m, cand_map, cand)
+            if done:
                 closed = True
                 new_consistency.clear()
                 break
@@ -506,25 +596,165 @@ class LoopCloser:
                 sw_, Rw_, _ = W_total
                 lf.v_w = sw_ * (Rw_ @ np.asarray(lf.v_w, np.float64))
             tracker.velocity = None  # re-estimate in the corrected frame
+        self._refresh_tracker_anchor(m)
 
         # Global BA (RunGlobalBundleAdjustment, LoopClosing.cc:2268): relax
-        # the whole map after the weld, inline.
+        # the whole map after the weld; a new keyframe interrupts it.
         if self.run_gba and self.camera is not None:
-            self._run_global_ba(fixed_kf_ids={cand.kid})
+            self._start_gba(fixed_kf_ids={cand.kid})
 
-    def _run_global_ba(self, fixed_kf_ids=None):
-        """Whole-map visual BA after a loop (LoopClosing.cc:2268-2512),
-        inline: the caller holds the map lock, and the sweep polls
-        `abort_gba` between its fixed-shape blocks (the mbStopGBA protocol).
-        An IMU-initialized map would get FullInertialBA instead
-        (LoopClosing.cc:2275-2280), which is M7b's."""
+    def _run_global_ba(self, fixed_kf_ids=None, lock=None):
+        """Whole-map BA after a loop or a merge (LoopClosing.cc:2268-2512).
+        Synchronous, the caller holds the map lock; on the GBA thread each
+        block takes `lock`. The sweep polls `abort_gba` between its
+        fixed-shape blocks (the mbStopGBA protocol). An IMU-initialized map
+        gets FullInertialBA instead of the visual BA (LoopClosing.cc:2275-2280
+        -> Optimizer.cc:392): the mapper's converged window sweep polishes
+        poses, velocities and biases along the temporal chain."""
         self.abort_gba = False
         m = self.atlas.current
-        if m.is_inertial and m.imu_initialized:
-            raise _not_ported("the full inertial BA after a loop in an inertial map")
-        global_bundle_adjustment(
-            m, self.camera, self.bf, self.inv_sigma2,
-            fixed_kf_ids=fixed_kf_ids,
-            should_abort=lambda: self.abort_gba, device=self.device,
-        )
+        mapper = getattr(self, "local_mapper", None)
+        if (m.is_inertial and m.imu_initialized and mapper is not None
+                and mapper.imu_calib is not None and m.keyframes):
+            latest = m.keyframes[max(m.keyframes)]
+            mapper.full_inertial_ba_converged(
+                latest, should_abort=lambda: self.abort_gba, lock=lock)
+            self._refresh_tracker_anchor(m)
+        else:
+            global_bundle_adjustment(
+                m, self.camera, self.bf, self.inv_sigma2,
+                fixed_kf_ids=fixed_kf_ids,
+                should_abort=lambda: self.abort_gba, lock=lock, device=self.device,
+            )
         self.n_gba_runs += 1
+
+    # ------------------------------------------------------------- map merge
+    def _merge_maps(self, kf: KeyFrame, m_new, m_old, cand: KeyFrame) -> bool:
+        """Atlas welding (MergeLocal, LoopClosing.cc:1215): the active map
+        (created after tracking was lost) overlaps an earlier map. Verify a
+        Sim3 between the current keyframe and the old map's candidate,
+        move the whole active map into the old map's frame, migrate its
+        keyframes and points, fuse duplicates at the weld, optimize the
+        essential graph over the union and make the old map current."""
+        mp = self._matched_points(kf, m_new, cand, m_old)
+        if mp is None:
+            return False
+        X1, X2, uv1, uv2, s1, s2, _, _ = mp
+        res = solve_sim3(
+            X1, X2, uv1, uv2, self.K, self.K, s1, s2,
+            fix_scale=self.fix_scale, min_inliers=20,
+        )
+        if not res.success:
+            return False
+        res = self._refine_sim3_lm(X1, X2, uv1, uv2, s1, s2, res)
+        # S12: cand camera -> current camera. World to world:
+        # X_w2 = S_w2_w1 X_w1 with S_w2_w1 = T2w2^-1 * S12^-1 * T1w1.
+        S12 = (res.s, res.R, res.t)
+        T1w1 = (1.0, kf.R_cw.copy(), kf.t_cw.copy())
+        T2w2 = (1.0, cand.R_cw.copy(), cand.t_cw.copy())
+        S_w2_w1 = sim3_mul(sim3_inv(T2w2), sim3_mul(sim3_inv(S12), T1w1))
+        sw, Rw, tw = S_w2_w1
+        S_w2_w1_inv = sim3_inv(S_w2_w1)
+
+        with m_old.lock:
+            # migrate keyframes: T_g_w2 = T_g_w1 * S_w1_w2; world-frame
+            # velocities rotate through the world-to-world Sim3 (MergeLocal2's
+            # inertial pose and velocity update, LoopClosing.cc:1783, :1595-1610)
+            for g in list(m_new.keyframes.values()):
+                sg, Rg, tg = sim3_mul((1.0, g.R_cw, g.t_cw), S_w2_w1_inv)
+                g.set_pose(orthonormalize(Rg), tg / sg)
+                self._transform_velocity(g, S_w2_w1)
+                m_old.add_keyframe(g)
+            # migrate points: X_w2 = S_w2_w1 X_w1
+            for p in list(m_new.mappoints.values()):
+                pos_new = sw * (Rw @ p.position) + tw
+                m_new.release_mappoint(p.mid)
+                p.position = pos_new
+                m_old.add_mappoint(p)
+            m_new.keyframes.clear()
+            m_new.mappoints.clear()
+
+            kf.loop_edges.add(cand.kid)
+            cand.loop_edges.add(kf.kid)
+            m_old.update_connections(kf)
+
+            # fuse duplicates at the weld, both ways (one matrix launch per
+            # target keyframe)
+            if self.camera is not None:
+                old_mids = [int(x) for x in cand.mp_ids if x >= 0]
+                for cid in list(cand.covisible)[:10]:
+                    c2 = m_old.keyframes.get(cid)
+                    if c2 is not None:
+                        old_mids.extend(int(x) for x in c2.mp_ids if x >= 0)
+                old_mids = sorted(set(old_mids))
+                for gid in [kf.kid] + list(kf.covisible)[:10]:
+                    g = m_old.keyframes.get(gid)
+                    if g is not None:
+                        fuse_mappoints_into(
+                            m_old, g, old_mids, self._cam_host,
+                            self.scale_factor, self.n_levels, th=4.0, device=self.device,
+                        )
+                new_mids = [int(x) for x in kf.mp_ids if x >= 0]
+                fuse_mappoints_into(
+                    m_old, cand, new_mids, self._cam_host,
+                    self.scale_factor, self.n_levels, th=4.0, device=self.device,
+                )
+                m_old.update_connections(kf)
+                m_old.update_connections(cand)
+
+            # essential-graph relaxation over the union (the weld edge pulls
+            # the two trajectories into one consistent frame)
+            poses = {
+                kid: (1.0, g.R_cw.copy(), g.t_cw.copy())
+                for kid, g in m_old.keyframes.items()
+            }
+            edges = []
+            seen = set()
+            for kid, g in m_old.keyframes.items():
+                nbrs = []
+                if g.parent_id is not None:
+                    nbrs.append(g.parent_id)
+                nbrs += list(g.loop_edges)
+                nbrs += [c for c, w in g.covisible.items() if w >= 100]
+                for b in nbrs:
+                    if b == kid or (min(kid, b), max(kid, b)) in seen or b not in poses:
+                        continue
+                    seen.add((min(kid, b), max(kid, b)))
+                    edges.append((kid, b, sim3_mul(poses[b], sim3_inv(poses[kid]))))
+            # the inertial flags survive the weld (MergeLocal2 keeps the merged
+            # map inertial; the old map's gravity frame is the reference)
+            m_old.is_inertial = m_old.is_inertial or m_new.is_inertial
+            m_old.imu_initialized = m_old.imu_initialized or m_new.imu_initialized
+            optimized = self._optimize_graph(m_old, poses, edges, {cand.kid})
+            for kid, (sg, Rg, tg) in optimized.items():
+                g = m_old.keyframes.get(kid)
+                if g is not None:
+                    g.set_pose(orthonormalize(Rg), tg / sg)
+                    self._transform_velocity(
+                        g, sim3_mul(sim3_inv(optimized[kid]), poses[kid]))
+            m_old.info_changed()
+
+        # the old map becomes the active one; the emptied one leaves the Atlas
+        self.atlas.change_map(m_old)
+        if m_new in self.atlas.maps:
+            self.atlas.remove_map(m_new)
+        # bring the tracker's frame-to-frame state into the merged frame
+        tracker = getattr(self, "tracker", None)
+        if tracker is not None and tracker.last_frame is not None \
+                and tracker.last_frame.R_cw is not None:
+            lf = tracker.last_frame
+            sg, Rg, tg = sim3_mul((1.0, lf.R_cw, lf.t_cw), S_w2_w1_inv)
+            lf.R_cw = orthonormalize(Rg)
+            lf.t_cw = tg / sg
+            if lf.v_w is not None:
+                lf.v_w = sw * (Rw @ np.asarray(lf.v_w, np.float64))
+            tracker.velocity = None  # re-estimate in the merged frame
+        self._refresh_tracker_anchor(m_old)
+        self.n_maps_merged += 1
+        if self.run_gba and self.camera is not None:
+            if self.run_async:
+                self._start_gba(fixed_kf_ids={cand.kid})
+            else:
+                with m_old.lock:
+                    self._run_global_ba(fixed_kf_ids={cand.kid})
+        return True

@@ -7,17 +7,18 @@ Atlas/Tracking/LocalMapping, TrackStereo is the entry point, then Shutdown
 and the trajectory savers in TUM / EuRoC / KITTI formats
 (System.cc:590-1285).
 
-Place recognition is on by default, as in the JAX package and the
-reference: `vocabulary=None` loads the port's shipped vocabulary
-(bow/orb_vocab_32k.npz), a synchronous LoopCloser gets every keyframe after
-the local mapper has processed it, and a lost tracker relocalizes against
-the keyframe database the two share. `vocabulary=False` runs tracking and
-local mapping without them.
+Place recognition is on by default for both sensors, as in the JAX
+package and the reference: `vocabulary=None` loads the port's shipped
+vocabulary (bow/orb_vocab_32k.npz), a LoopCloser gets every keyframe after
+the local mapper has processed it (inline, or through its own thread with
+`async_mapping=True`), closes loops (inertially in a map marked inertial,
+which no live run does here or in the JAX package: ROADMAP F16) and
+welds a map started after a loss into the earlier one it revisits, and
+a lost tracker relocalizes against the keyframe database they share.
+`vocabulary=False` runs tracking and local mapping without them.
 
 Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: a vocabulary with
-`Sensor.IMU_STEREO` (inertial loop closing) or with `async_mapping=True`
-(the loop-closer and global-BA threads) (M7b); the monocular and RGB-D
+is asked for, never taking another path quietly: the monocular and RGB-D
 sensors with and without an IMU, input resize, start-up rectification of a
 distorted pair, fisheye rigs and atlas save/load, inertial maps included
 (M9).
@@ -83,11 +84,6 @@ class System:
             raise NotImplementedError(
                 f"the sensor {sensor.name} is not ported yet (ROADMAP M9)"
             )
-        if vocabulary is not False and sensor is Sensor.IMU_STEREO:
-            raise NotImplementedError(
-                "inertial loop closing (a vocabulary with Sensor.IMU_STEREO) is not "
-                "ported yet (ROADMAP M7b): pass vocabulary=False"
-            )
         if settings.new_width and settings.new_height and (
             settings.new_width != settings.width
             or settings.new_height != settings.height
@@ -137,7 +133,7 @@ class System:
                 self.atlas, self.vocabulary,
                 np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]),
                 scale_factor=settings.scale_factor,
-                fix_scale=True,   # stereo: the scale is observed
+                fix_scale=True,   # stereo and stereo-inertial: the scale is observed
                 run_async=async_mapping,
                 camera=settings.camera1,
                 bf=settings.bf or 1.0,

@@ -137,20 +137,39 @@ def test_flat_quantize_equals_jax(rng, rendered_descs, kind, source):
 
 
 def test_assign_raises_beyond_the_kernels_width(rng):
-    """A tensor off the CPU takes the kernel or raises: 4,097 words do not fit
-    its shared memory (MAX_N), and nothing falls back to the plain version.
-    (A `meta` tensor stands in for a CUDA one: no card is needed to see the
-    check, and the wrapper refuses a meta tensor before any launch.)"""
+    """A tensor off the CPU takes the kernel or raises, and nothing falls
+    back to the plain version. Beyond the kernel's 4,096 words (MAX_N)
+    `_assign` launches it once per chunk of at most MAX_N words, so a wider
+    vocabulary raises only where the kernel refuses a chunk. (A `meta`
+    tensor stands in for a CUDA one: no card is needed to see the check,
+    and the wrapper refuses a meta tensor before any launch.)"""
     q = torch.empty((8, 256), dtype=torch.int8, device="meta")
-    with pytest.raises(ValueError, match="MAX_N"):
-        tvoc._assign(q, torch.empty((hamming_kernel.MAX_N + 1, 256), dtype=torch.int8,
-                                    device="meta"))
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        tvoc._assign(q, torch.empty((hamming_kernel.MAX_N, 256), dtype=torch.int8,
-                                    device="meta"))
+    for n in (hamming_kernel.MAX_N + 1, hamming_kernel.MAX_N):
+        with pytest.raises(ValueError, match="runs on cpu or cuda"):
+            tvoc._assign(q, torch.empty((n, 256), dtype=torch.int8, device="meta"))
     descs = torch.from_numpy(random_descs(rng, 20))
     words = torch.from_numpy(random_descs(rng, hamming_kernel.MAX_N + 5))
     assert tvoc._assign(descs, words).shape == (20,)        # the CPU takes any width
+
+
+def test_a_vocabulary_wider_than_the_kernel_quantizes_as_in_jax(rng):
+    """5,000 words, wider than the kernel's MAX_N: the plain version (what
+    the card's chunked launches are held to, tests/test_torch_topk_kernel.py)
+    gives the JAX package's words, ties and exact words past the first
+    4,096 included."""
+    voc = tvoc.make_random_vocabulary(5000, seed=4)
+    words = voc.words_signed.copy()
+    words[4500:4600] = words[100:200]            # ties across the chunks: the lower wins
+    words[4800:4810] = words[4100:4110]          # ties inside the second chunk
+    voc = tvoc.Vocabulary(words, voc.idf)
+    descs = random_descs(rng, 400)
+    descs[::4] = words[rng.integers(0, 5000, len(descs[::4]))]
+    descs[1:40:4] = words[4100:4110]             # nearest only past MAX_N
+    wid, bow = tvoc.quantize(voc, descs, device="cpu")
+    jwid, jbow = jvoc.quantize(jvoc.Vocabulary(words, voc.idf), descs)
+    np.testing.assert_array_equal(wid, np.asarray(jwid))
+    assert_bow_equal(bow, jbow)
+    assert (wid >= hamming_kernel.MAX_N).any() and not ((wid >= 4500) & (wid < 4600)).any()
 
 
 # --------------------------------------------------------- tree quantization

@@ -95,6 +95,60 @@ def test_se3_from_numpy(rng):
     assert_se3_close(convert.se3_from_numpy(np.asarray(T.R), np.asarray(T.t), device="cpu"), T)
 
 
+def sim3_tangents(rng, n=64):
+    """[rho, phi, sigma]: the small-angle and small-scale branches included."""
+    sigma = rng.normal(scale=0.5, size=(n, 1))
+    sigma[:3] = 0.0
+    sigma[3:4] = 1e-8
+    return np.concatenate([tangents(rng, n), sigma], -1).astype(np.float32)
+
+
+def jax_sim3(S):
+    return jgeo.Sim3(*(jnp.asarray(np.asarray(x)) for x in S))
+
+
+def assert_sim3_close(St, Sj):
+    for a, b in zip(St, Sj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_sim3_exp_log(rng):
+    """geometry/sim3.py against the JAX module, float32 on both sides (the
+    port needs no precision pin: TF32 is off), tolerance TOL."""
+    xi = sim3_tangents(rng)
+    St = tgeo.sim3_exp(torch.from_numpy(xi))
+    Sj = jgeo.sim3_exp(jnp.asarray(xi))
+    assert_sim3_close(St, Sj)
+    np.testing.assert_allclose(tgeo.sim3_log(St).numpy(), np.asarray(jgeo.sim3_log(Sj)), **TOL)
+    np.testing.assert_allclose(tgeo.sim3_log(St).numpy(), xi, **TOL)     # the round trip
+
+
+def test_sim3_compose_inverse_apply(rng):
+    A = tgeo.sim3_exp(torch.from_numpy(sim3_tangents(rng, 16)))
+    B = tgeo.sim3_exp(torch.from_numpy(sim3_tangents(rng, 16)))
+    X = rng.normal(size=(16, 3)).astype(np.float32) * 5
+    assert_sim3_close(tgeo.sim3_compose(A, B), jgeo.sim3_compose(jax_sim3(A), jax_sim3(B)))
+    assert_sim3_close(tgeo.sim3_inverse(A), jgeo.sim3_inverse(jax_sim3(A)))
+    np.testing.assert_allclose(
+        tgeo.sim3_apply(A, torch.from_numpy(X)).numpy(),
+        np.asarray(jgeo.sim3_apply(jax_sim3(A), jnp.asarray(X))), **TOL,
+    )
+    I = tgeo.sim3_compose(A, tgeo.sim3_inverse(A))
+    assert_sim3_close(I, jgeo.sim3_identity((16,)))
+
+
+def test_sim3_identity_and_se3(rng):
+    from fasttrack_tpu.geometry.sim3 import sim3_to_se3 as jax_sim3_to_se3
+    from fasttrack_tpu_torch.geometry.sim3 import sim3_to_se3
+
+    I = tgeo.sim3_identity((2,), device="cpu")
+    assert_sim3_close(I, jgeo.sim3_identity((2,)))
+    T = tgeo.se3_exp(torch.from_numpy(tangents(rng, 8)))
+    assert_sim3_close(tgeo.sim3_from_se3(T), jgeo.sim3_from_se3(jax_se3(T)))
+    S = tgeo.sim3_exp(torch.from_numpy(sim3_tangents(rng, 8)))
+    assert_se3_close(sim3_to_se3(S), jax_sim3_to_se3(jax_sim3(S)))
+
+
 def points(rng, n=256):
     d = rng.normal(size=(n, 3))
     d[:, 2] = np.abs(d[:, 2]) + 0.5

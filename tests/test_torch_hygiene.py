@@ -69,7 +69,7 @@ def imported_roots(path: Path):
 def test_package_has_the_slice_modules():
     names = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
     for m in (
-        "geometry/so3.py", "geometry/se3.py", "cameras/models.py", "ops/pattern.py",
+        "geometry/so3.py", "geometry/se3.py", "geometry/sim3.py", "cameras/models.py", "ops/pattern.py",
         "ops/pyramid.py", "ops/fast.py", "ops/orientation.py", "ops/descriptor.py",
         "ops/hamming.py", "ops/hamming_kernel.py", "ops/extractor.py",
         "ops/stereo_match.py", "ops/project_match.py", "optim/robust.py",
@@ -129,6 +129,7 @@ def _keypoint_args(n=4):
 
 CONSTRUCTORS = {
     "se3_identity": (geometry.se3_identity, ()),
+    "sim3_identity": (geometry.sim3_identity, ()),
     "make_pinhole": (cameras.make_pinhole, (458.0, 457.0, 367.0, 248.0)),
     "make_kannala_brandt8": (cameras.make_kannala_brandt8, (190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0)),
     "camera_from_numpy": (convert.camera_from_numpy, ("pinhole", np.zeros(8), 752, 480)),
@@ -184,7 +185,7 @@ def test_constructor_honours_cpu_and_defaults_to_the_card(name, monkeypatch):
         asked.append(dev)
         return device.resolve(dev if dev is not None else "cpu")
 
-    for module in (geometry.se3, cameras.models, convert, tpre):
+    for module in (geometry.se3, geometry.sim3, cameras.models, convert, tpre):
         monkeypatch.setattr(module, "resolve", fake_resolve)
     fn(*args)
     assert asked == [None]
@@ -374,6 +375,13 @@ def test_place_recognition_defaults_to_the_card_and_honours_cpu(monkeypatch):
 
     made = _asks_the_resolver(monkeypatch, [system], lambda: system.System(settings()))
     assert made.loop_closer.device == made.tracker.device == made.device
+    monkeypatch.undo()
+    # the stereo-inertial system with its loop closer on threads of its own
+    made = _asks_the_resolver(monkeypatch, [system], lambda: system.System(
+        settings(), system.Sensor.IMU_STEREO, async_mapping=True))
+    made.shutdown()
+    assert made.loop_closer.device == made.local_mapper.device == made.device
+    assert not made.loop_closer._thread.is_alive() and not made.local_mapper._thread.is_alive()
     monkeypatch.undo()
     descs = np.ones((20, 256), np.int8)
     for build in (lambda: vocabulary.quantize(voc, descs),

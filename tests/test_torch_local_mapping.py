@@ -44,8 +44,10 @@ from fasttrack_tpu_torch import ba_assembly as tassembly
 from fasttrack_tpu_torch import local_mapping as tmapping
 from fasttrack_tpu_torch import slam_map as tmap
 from fasttrack_tpu_torch import tracking as ttracking
+from fasttrack_tpu_torch.bow.vocabulary import make_random_vocabulary
 from fasttrack_tpu_torch.cameras import make_pinhole
 from fasttrack_tpu_torch.datasets import synthetic
+from fasttrack_tpu_torch.loop_closing import LoopCloser
 from fasttrack_tpu_torch.ops import host_kernels as thost
 from fasttrack_tpu_torch.ops import project_match as tpm
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
@@ -624,13 +626,36 @@ def test_tracker_with_a_mapper_follows_the_jax_tracker(mapped):
 @pytest.mark.parametrize("kwargs, item", [
     (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial
     (dict(monocular=True), "M9"),
-    (dict(loop_closer=object(), run_async=True), "M7"),   # on the mapping thread: M7b
     (dict(mesh=object()), "M10"),
 ])
 def test_left_out_branches_raise_with_their_item(kwargs, item):
     _, tcam = cams()
     with pytest.raises(NotImplementedError, match=item):
         tmapping.LocalMapper(tmap.Atlas(), tcam, 28.0, device="cpu", **kwargs)
+
+
+def test_a_mapper_on_its_thread_queues_to_the_loop_closer():
+    """A loop closer on the mapping thread (M7b): the mapper hands every
+    keyframe it has processed to the closer's queue, as the JAX mapper does
+    (fasttrack_tpu/local_mapping.py:163-164), and the closer's thread takes
+    it from there."""
+    _, tcam = cams()
+    ta, tk = build_scene(tmap)
+    lc = LoopCloser(ta, make_random_vocabulary(64), np.eye(3), run_async=True, device="cpu")
+    seen = []
+    inner = lc.process_keyframe
+    lc.process_keyframe = lambda kid: seen.append(kid) or inner(kid)
+    lm = tmapping.LocalMapper(ta, tcam, 28.0, run_async=True, loop_closer=lc, device="cpu")
+    for kf in tk:
+        lm.insert_keyframe(kf)
+    deadline = time.monotonic() + 60
+    while (not lm.is_idle() or len(seen) < len(tk)) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    lm.stop()
+    lc.stop()
+    assert seen == [kf.kid for kf in tk]
+    assert len(lm.stats.series["lc_keyframe"]) == len(tk)
+    assert not lm._thread.is_alive() and not lc._thread.is_alive() and lc.n_thread_errors == 0
 
 
 def test_mapper_constants_and_queue_protocol():

@@ -24,8 +24,8 @@ Compared, and why the bounds are what they are:
 - the loop removes the drift in both packages, to < 0.6 of the drift
   before (the JAX test's ratio), and the drifts after agree within 1e-4.
 
-Also the rules of the port's synchronous closer: a candidate in another
-Atlas map, the threads and the inertial branches raise with ROADMAP M7b.
+Also the branches that came with M7b run: the threads, the inertial global
+BA's dispatch and the 4-DoF graph, and a candidate in another Atlas map.
 """
 
 import numpy as np
@@ -38,7 +38,13 @@ from fasttrack_tpu.loop_closing import LoopCloser as JaxLoopCloser
 from fasttrack_tpu_torch import slam_map as tmap
 from fasttrack_tpu_torch.bow.vocabulary import train_vocabulary
 from fasttrack_tpu_torch.cameras import make_pinhole
-from fasttrack_tpu_torch.datasets.synthetic import LOOP_FX, LOOP_H, LOOP_W, drifted_loop_scene
+from fasttrack_tpu_torch.datasets.synthetic import (
+    LOOP_FX,
+    LOOP_H,
+    LOOP_W,
+    drifted_loop_scene,
+    two_map_scene,
+)
 from fasttrack_tpu_torch.loop_closing import LoopCloser
 from tests.test_torch_host_kernels import jax_native_library
 from tests.test_torch_system import one_torch_thread
@@ -149,27 +155,43 @@ def test_the_loop_removes_the_drift(runs):
     assert t["drift_after"] == pytest.approx(j["drift_after"], abs=ATOL)
 
 
-# ------------------------------------------------------------ what is left out
-def test_left_out_branches_raise_with_m7b():
+# ------------------------------------------------------------ the branches of M7b
+def test_branches_of_m7b_run():
+    """What the synchronous closer of M7a raised for runs: a run_async
+    closer builds and stops, the inertial `_run_global_ba` dispatches to the
+    mapper's converged full inertial BA, and a candidate in another Atlas
+    map welds the maps (tests/test_torch_map_merge.py and
+    test_torch_inertial_loop.py hold these against the JAX package)."""
     lc, out, back, _ = _closer(True, run_gba=False)
-    with pytest.raises(NotImplementedError, match="M7b"):
-        LoopCloser(lc.atlas, lc.voc, lc.K, run_async=True, device="cpu")
+    threaded = LoopCloser(lc.atlas, lc.voc, lc.K, run_async=True, device="cpu")
+    assert threaded._thread.is_alive()
+    threaded.stop()
+    assert not threaded._thread.is_alive() and threaded.n_thread_errors == 0
     m = lc.atlas.current
     m.is_inertial = m.imu_initialized = True
-    with pytest.raises(NotImplementedError, match="M7b"):
-        lc._run_global_ba()
-    with pytest.raises(NotImplementedError, match="M7b"):
-        lc._optimize_graph(m, {}, [], set())
-    m.is_inertial = m.imu_initialized = False
-    # the outbound leg in one map, the return leg in another: its candidates
-    # would call the Atlas map merge
-    for kf in out:
-        lc.process_keyframe(kf.kid)
-    new = lc.atlas.create_new_map()
-    for kf in back:
-        m.keyframes.pop(kf.kid)
-        new.keyframes[kf.kid] = kf
-    with pytest.raises(NotImplementedError, match="map merge.*M7b"):
-        for kf in back:
-            lc.process_keyframe(kf.kid)
+    calls = []
+    lc.local_mapper = type("Mapper", (), dict(
+        imu_calib=object(),
+        full_inertial_ba_converged=lambda self, kf, should_abort=None, lock=None:
+            calls.append(kf.kid) or 1))()
+    lc._run_global_ba()
+    assert calls == [max(m.keyframes)] and lc.n_gba_runs == 1
+    # the 4-DoF graph of an inertial map keeps the fixed vertex where it is
+    poses = {k: (1.0, kf.R_cw.copy(), kf.t_cw.copy()) for k, kf in m.keyframes.items()}
+    got = lc._optimize_graph(m, poses, [], {out[0].kid})
+    assert sorted(got) == sorted(poses)
+    np.testing.assert_array_equal(got[out[0].kid][2], poses[out[0].kid][2])
     lc.stop()
+    # the Atlas map merge: a new map over the places of an older one
+    # (tests/test_gba_merge.py's two maps) welds into it
+    atlas, m_old, m_new, kfs_a, kfs_b, descs = two_map_scene(tmap)
+    voc = train_vocabulary(np.concatenate([descs, descs]), n_words=64, iters=2, device="cpu")
+    lc = LoopCloser(atlas, voc, lc.K, camera=lc.camera, bf=1.0, run_gba=False, device="cpu")
+    atlas.change_map(m_old)
+    for kf in kfs_a:
+        lc.process_keyframe(kf.kid)
+    atlas.change_map(m_new)
+    merged = [lc.process_keyframe(kf.kid) for kf in kfs_b]
+    assert any(merged) and lc.n_maps_merged == 1 and lc.n_loops_closed == 0
+    assert atlas.current is m_old and m_new not in atlas.maps
+    assert all(kf.kid in m_old.keyframes for kf in kfs_b)

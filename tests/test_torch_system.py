@@ -243,16 +243,6 @@ def _settings(**kw):
 
 
 LEFT_OUT = {
-    # place recognition runs with the visual system's inline mapping
-    # (tests/test_torch_relocalization.py, test_torch_loop_closing.py); on a
-    # mapping thread the loop closer and its global BA would need threads of
-    # their own (M7b)
-    "default vocabulary": (dict(), dict(vocabulary=None, async_mapping=True), "M7b"),
-    "a vocabulary": (dict(), dict(vocabulary=make_random_vocabulary(64),
-                                  sensor=Sensor.IMU_STEREO), "M7b"),
-    # the stereo-inertial system runs (tests/test_torch_system_inertial.py);
-    # its loop closing is inertial loop closing (M7b)
-    "IMU_STEREO": (dict(), dict(sensor=Sensor.IMU_STEREO, vocabulary=None), "M7b"),
     "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9"),
     "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9"),
     "MONOCULAR": (dict(), dict(sensor=Sensor.MONOCULAR), "M9"),
@@ -277,16 +267,45 @@ def test_left_out_branch_raises_with_its_item(name):
         System(_settings(**settings_kw), **kw)
 
 
+# place recognition in every configuration: with the mapping thread the loop
+# closer and its global BA run on threads of their own, and the
+# stereo-inertial system closes loops inertially
+# (tests/test_torch_loop_threads.py, test_torch_inertial_loop.py)
+PLACE_RECOGNITION = {
+    "default vocabulary": dict(vocabulary=None, async_mapping=True),
+    "a vocabulary": dict(vocabulary=make_random_vocabulary(64), sensor=Sensor.IMU_STEREO),
+    "IMU_STEREO": dict(sensor=Sensor.IMU_STEREO, vocabulary=None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLACE_RECOGNITION))
+def test_place_recognition_builds_with_a_wired_loop_closer(name):
+    kw = dict(sensor=Sensor.STEREO, device="cpu")
+    kw.update(PLACE_RECOGNITION[name])
+    system = System(_settings(), **kw)
+    lc, lm, tracker = system.loop_closer, system.local_mapper, system.tracker
+    assert lc is not None and lc.voc is system.vocabulary is tracker.vocabulary
+    if kw["vocabulary"] is None:
+        assert system.vocabulary is load_default_vocabulary()
+    assert lm.loop_closer is lc and lc.local_mapper is lm and lc.tracker is tracker
+    assert tracker.reloc_db is lc.db and system.atlas.kf_db is lc.db
+    assert lc.fix_scale and lc.run_async == lm.run_async == kw.get("async_mapping", False)
+    assert (lm.imu_calib is not None) == (kw["sensor"] is Sensor.IMU_STEREO)
+    system.shutdown()
+    assert all(t is None or not t.is_alive() for t in (lm._thread, lc._thread, lc._gba_thread))
+
+
 def test_the_vocabulary_message_says_what_to_pass():
     """The default runs place recognition with the port's shipped
-    vocabulary; where it is not ported yet, the message says to pass
-    vocabulary=False."""
+    vocabulary, for the stereo and the stereo-inertial sensor alike."""
     system = System(_settings(), device="cpu")
     assert system.vocabulary is load_default_vocabulary()
     assert system.loop_closer is not None and system.tracker.vocabulary is system.vocabulary
     system.shutdown()
-    with pytest.raises(NotImplementedError, match="M7b.*vocabulary=False"):
-        System(_settings(), Sensor.IMU_STEREO, device="cpu")
+    system = System(_settings(), Sensor.IMU_STEREO, device="cpu")
+    assert system.vocabulary is load_default_vocabulary()
+    assert system.loop_closer.local_mapper.imu_calib is system.imu_calib is not None
+    system.shutdown()
 
 
 def test_an_undistorted_pair_needs_no_rectification():

@@ -61,6 +61,7 @@ POSE_ATOL = 2e-3
 FIRST_ADJUSTED_FRAME = 16     # the first frame tracked against an adjusted map
 ATE_LIMIT = 0.06              # tests/test_inertial.py
 ATE_MARGIN_M = 0.005
+FULL_BA_ATOL = 1e-3           # the converged full inertial BA, beyond the maps' parting
 
 
 def numpy_hamming_matrix_packed(a, b):
@@ -306,8 +307,10 @@ def test_system_builds_the_calibration_from_the_settings(seq):
             call("a.osa")
     with pytest.raises(NotImplementedError, match="M9"):
         system.local_mapper._scale_refinement(None)
-    with pytest.raises(NotImplementedError, match="M7"):
-        system.local_mapper.full_inertial_ba_converged(None)
+    # the converged full inertial BA of the post-loop global BA: a lone
+    # keyframe's chain holds no window, so one sweep and done
+    lone = types.SimpleNamespace(kid=0, prev_kf_id=None, R_cw=np.eye(3), t_cw=np.zeros(3))
+    assert system.local_mapper.full_inertial_ba_converged(lone) == 1
 
 
 def test_losing_track_before_imu_init_resets_the_map(seq):
@@ -392,3 +395,36 @@ def test_inertial_cull_rules_follow_the_chain():
     m.imu_initialized = False
     lm._cull_keyframes(cur)
     assert erased == [2]
+
+
+# ------------------------------------- the converged full inertial BA (after `ran`)
+def test_converged_full_inertial_ba_equals_jax(ran):
+    """`LocalMapper.full_inertial_ba_converged` over each package's whole
+    inertial chain after the run (the post-loop global BA of an
+    IMU-initialized map): the same number of sweeps in both, and a second
+    call is one sweep that moves no keyframe by more than 1e-3 m
+    (tests/test_inertial_loop.py's fixed point). The two maps part by
+    millimetres before the call (P4, above), so the poses after it are held
+    to each other within FULL_BA_ATOL beyond what they parted by before.
+    Last in the file: it moves the keyframes of `ran`'s maps."""
+    jsys, tsys, _, _ = ran
+    out = {}
+    for name, system in (("jax", jsys), ("torch", tsys)):
+        m = system.atlas.current
+        latest = m.keyframes[max(m.keyframes)]
+        before = {k: kf.t_cw.copy() for k, kf in m.keyframes.items()}
+        with one_torch_thread():
+            rounds = system.local_mapper.full_inertial_ba_converged(latest)
+            after = {k: kf.t_cw.copy() for k, kf in m.keyframes.items()}
+            again = system.local_mapper.full_inertial_ba_converged(latest)
+        moved = max(float(np.abs(m.keyframes[k].t_cw - t).max()) for k, t in after.items())
+        out[name] = dict(rounds=rounds, before=before, after=after, again=again, moved=moved)
+    t, j = out["torch"], out["jax"]
+    assert t["rounds"] == j["rounds"] >= 1
+    assert t["again"] == j["again"] == 1
+    assert t["moved"] < 1e-3 and j["moved"] < 1e-3, (t["moved"], j["moved"])
+    assert sorted(t["after"]) == sorted(j["after"])
+    parted = max(float(np.abs(t["before"][k] - j["before"][k]).max()) for k in t["before"])
+    for k in t["after"]:
+        np.testing.assert_allclose(t["after"][k], j["after"][k], atol=parted + FULL_BA_ATOL,
+                                   rtol=0, err_msg=f"keyframe {k}")

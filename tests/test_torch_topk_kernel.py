@@ -203,3 +203,27 @@ def test_vocabulary_assign_launches_the_kernel_with_k_1_on_gpu(rng, cuda_device,
     values, indices = hamming_penalty_topk(descs, words, zeros_q, zeros_k, 1)
     want_v, want_i = hamming_penalty_topk_reference(descs, words, zeros_q, zeros_k, 1)
     assert torch.equal(values, want_v) and torch.equal(indices, want_i)
+
+
+@pytest.mark.cuda
+def test_vocabulary_assign_chunks_a_wide_vocabulary_on_gpu(rng, cuda_device):
+    """5,000 words, wider than the kernel's MAX_N: one K = 1 launch per chunk
+    of at most 4,096 words, merged on the card; the words equal the plain
+    argmin's first index, with rows tied inside and across the chunks and
+    exact words only in the second chunk."""
+    from fasttrack_tpu_torch.bow.vocabulary import _assign, _assign_reference
+    from fasttrack_tpu_torch.ops.hamming_kernel import MAX_N
+
+    M, N = 1024, 5000
+    descs = descriptors(rng, M, 7)
+    words = descriptors(rng, N, 5)
+    words[MAX_N:MAX_N + 8] = descs[:8]
+    words[4800:4808] = descs[:8]
+    descs_t, words_t = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                        for a in (descs, words))
+    before = hamming_penalty_topk.launches_by_k[1]
+    got = _assign(descs_t, words_t)
+    torch.cuda.synchronize()
+    assert hamming_penalty_topk.launches_by_k[1] == before + 2
+    want = _assign_reference(descs_t.cpu(), words_t.cpu())
+    assert torch.equal(got.cpu(), want) and (want >= MAX_N).any()
