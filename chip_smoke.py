@@ -161,7 +161,31 @@ Phases, each printing a line; any failure raises and exits non-zero:
    async_mapping=True) with the shipped vocabulary over the first 50 frames
    of phase 13's sequence: every frame OK, IMU init, the ATE, the queues
    drained, no mapper, loop-closer or global-BA thread alive after
-   shutdown(), no thread error, ms/frame.
+   shutdown(), no thread error, ms/frame;
+22. EuRoC's rig as distributed (datasets.synthetic.euroc_radtan_rig: a
+   radtan pair with EuRoC's calibration, camera 2 rotated 0.8 deg, the body
+   90 deg about z from camera 1): (a) System(Sensor.IMU_STEREO) in its
+   default configuration over 60 rendered 752x480 frames with their IMU
+   stream, rectified at start-up (the IMU extrinsic composed with the
+   rectifying rotation, ROADMAP F10): every frame OK, IMU init, |bg|, the
+   ATE (<= 0.02 m), ms/frame with the host remap of both images apart;
+   (b) the visual System over its first 30 frames asked for 376x240
+   (Camera.newWidth / newHeight), resized and then rectified: every frame
+   OK, the ATE (<= 0.02 m);
+23. TUM-VI's rig as distributed (tumvi_kb8_rig: a KB8 fisheye pair with
+   TUM-VI's calibration at 512x512): (a) System(Sensor.IMU_STEREO) in its
+   default configuration over 60 rendered frames, through the fisheye
+   route: >= 100 keypoints with a triangulated depth on the first frame,
+   one K = 2 launch (match_fisheye) on every frame, 1 fetch per fused
+   frame, every frame OK, IMU init, |bg|, the ATE (<= 0.3045 m, twice the
+   JAX package's reading on these frames: rig_reading.py); (b) the
+   visual System's first 6 frames on the card against System(device="cpu"):
+   states, paths, keyframes, poses within 1e-3.
+
+Phase 3 also times torch._int_mm of the +-1 descriptors at the matrix
+kernel's four shapes: the int8 product the kernel computes in its body
+(Hamming = (256 - q.k) / 2), without the penalties, as its library
+yardstick.
 
 Phases 8 to 12 and 15 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
@@ -170,8 +194,8 @@ same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
 
 The line before the last two is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Each kernel's `launches` is what the
-fifteen paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a, 20b,
-21a and 21b) launched, counted from 0 at each path's start (phase 19b launches
+nineteen paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a, 20b,
+21a, 21b, 22a, 22b, 23a and 23b's card run) launched, counted from 0 at each path's start (phase 19b launches
 neither); `launches_relocalization` and `launches_loop_closing` are the
 part of phases 17-18 that relocalization and the loop closer made, and
 `launches_merge` the part of phases 20a and 20b that `_merge_maps` made
@@ -208,7 +232,7 @@ from fasttrack_tpu_torch import (
     tracking,
 )
 from fasttrack_tpu_torch.bow.vocabulary import train_vocabulary
-from fasttrack_tpu_torch.cameras import host_camera, make_pinhole
+from fasttrack_tpu_torch.cameras import host_camera, make_kannala_brandt8, make_pinhole
 from fasttrack_tpu_torch.datasets import synthetic
 from fasttrack_tpu_torch.datasets.synthetic import (
     LOOP_FX,
@@ -253,7 +277,8 @@ KEYFRAME_EVERY = 4              # frames between insertions of new map points
 STEP = (3, 5)  # (dy, dx) px the view moves per frame: content moves (-5, -3)
 TOP_K = 64
 FUSION_SHAPE = (3000, 1024)     # candidate points x keypoints of a fusion's reverse pass
-MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (1200, 1000), FUSION_SHAPE]
+# the tracker's shapes, PERF.md's 4096 x 1024 row, a ragged one and a fusion's
+MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (4096, 1024), (1200, 1000), FUSION_SHAPE]
 EPI_ROWS = 10 * 1024            # the mapper's 10 neighbour keyframes, stacked
 # (M, N, kind of input, K); 33 x 40 has N < K. "validity": what match_fisheye
 # gives the kernel (penalties 0 or 1e9, invalid rows tie across all columns).
@@ -277,9 +302,10 @@ MAX_SYSTEM_CPU_FRAMES = 48      # phase 11 stops after the frame that follows th
 N_INERTIAL_FRAMES = 160         # phase 13: 8 s, IMU init at ~2 s, the 5 s full-BA stage after it
 N_REPLAY_FRAMES = 3             # phase 14: inertial fused frames replayed on the CPU
 # Phases 15 and 16 run the host extractor, whose NumPy pyramid takes ~2 s a
-# frame on the card's host; phase 15 is cut from 40 frames to 24 so that the
-# whole run stays inside its time limit (phases 1-14 took 322-588 s across calls)
-N_TOGGLE_FRAMES = 24            # phase 15: of phase 8's sequence, per configuration
+# frame on the card's host; phase 15 is cut from 40 frames to 24, then to 12
+# (medians over the last 10) to make room for phases 22-23, so that the
+# whole run stays inside its time limit
+N_TOGGLE_FRAMES = 12            # phase 15: of phase 8's sequence, per configuration
 N_HOST_INERTIAL_FRAMES = 60     # phase 16: of phase 13's sequence (IMU init at frame 40)
 # Phase 16's ATE over all its frames. Before IMU init the host extractor's map
 # lets a local BA pull the keyframes by centimetres, in the JAX package as in
@@ -343,6 +369,27 @@ MERGE_ATE_LIMIT_M = 2 * MERGE_JAX_ATE_M
 MERGE_JAX_ATE_AFTER_M = 0.0082
 MERGE_JAX_CENTRE_M = 0.0876
 MERGE_CENTRE_LIMIT_M = 2 * MERGE_JAX_CENTRE_M
+# Phases 22 and 23: the camera rigs of the reference's datasets as they are
+# distributed, rendered by datasets.synthetic with their IMU streams in a
+# body frame 90 deg about z from camera 1: EuRoC's distorted pinhole pair
+# at 752x480 (cam0's and cam1's intrinsics and radtan coefficients, camera 2
+# 0.11 m along x and 0.8 deg about x; rectified at start-up) and TUM-VI's
+# KB8 fisheye pair at 512x512 (its calibration, 0.101 m, the image circle
+# 75 deg off the axis, the plane 3 m away).
+N_RIG_FRAMES = 60               # phases 22a and 23a: IMU init at ~2 s
+N_RESIZE_FRAMES = 30            # phase 22b: its first 30 frames
+RESIZE_TO = (376, 240)          # phase 22b: Camera.newWidth / newHeight
+KB8_SIZE = 512
+KB8_PLANE_Z = 3.0
+N_FISHEYE_CPU_FRAMES = 6        # phase 23b
+MIN_FISHEYE_DEPTHS = 100        # Tracking::StereoInitialization's threshold
+# Phase 23a's ATE gate. The KB8 route does not reach ATE_LIMIT_M on these
+# frames in either package (a KB8 map's bundle adjustment has mono edges
+# only, ROADMAP F24): rig_reading.py --package jax on the card's host CPU
+# read 0.1522 m (59 of 60 frames OK, IMU init at frame 40); the limit is
+# twice that.
+FISHEYE_JAX_ATE_M = 0.1522
+FISHEYE_ATE_LIMIT_M = 2 * FISHEYE_JAX_ATE_M
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -513,10 +560,21 @@ def phase_matrix_kernel(device, card):
         max_err = max(max_err, float((got - want).abs().max()))
         k_ms, p_ms, timer = in_turns(lambda: plain(*args), lambda: kern(*args))
         b, by = bound_ms(M, N, M * N * 4)
-        rows[(M, N)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by, "timer": timer}
+        # the library yardstick: the int8 product the kernel computes in its
+        # body (Hamming = (256 - q.k) / 2), one torch._int_mm call, product
+        # only, no penalties; checked against the plain version without them
+        q, k = args[0], args[1]
+        dot = torch._int_mm(q, k.t())
+        zero_q, zero_k = torch.zeros_like(args[2]), torch.zeros_like(args[3])
+        check(torch.equal((256 - dot).float() / 2, plain(q, k, zero_q, zero_k)),
+              f"torch._int_mm's product is not the Hamming distance at {(M, N)}")
+        lib_ms = device_ms(lambda: torch._int_mm(q, k.t()))
+        rows[(M, N)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by, "timer": timer,
+                        "library_ms": lib_ms}
         print(f"phase 3 matrix kernel against plain {(M, N)}: bitwise equal; device time ({timer}) "
               f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
-              f"bound {b * 1e3:.2f} us ({by}) ({card})")
+              f"bound {b * 1e3:.2f} us ({by}); library yardstick torch._int_mm (product only, "
+              f"no penalties) {lib_ms * 1e3:.2f} us ({card})")
     return rows, max_err
 
 
@@ -1538,13 +1596,13 @@ TRACKER_STAGES = (
 )
 
 
-def watch_tracker_stages():
+def watch_tracker_stages(stages=TRACKER_STAGES):
     """Wraps the tracker's device stages that launch a Hamming kernel:
     counts[stage] = [top-k launches, matrix launches, calls], summed over
     the calls made while the wrappers are in. Returns (counts, restore)."""
     kern, matrix = hamming_kernel.hamming_penalty_topk, hamming_kernel.hamming_penalty_matrix
-    counts = {name: [0, 0, 0] for name, _, _ in TRACKER_STAGES}
-    inner = [(module, attr, getattr(module, attr)) for _, module, attr in TRACKER_STAGES]
+    counts = {name: [0, 0, 0] for name, _, _ in stages}
+    inner = [(module, attr, getattr(module, attr)) for _, module, attr in stages]
 
     def wrap(name, fn):
         def stage(*args, **kwargs):
@@ -1557,7 +1615,7 @@ def watch_tracker_stages():
             return out
         return stage
 
-    for (name, module, attr), (_, _, fn) in zip(TRACKER_STAGES, inner):
+    for (name, module, attr), (_, _, fn) in zip(stages, inner):
         setattr(module, attr, wrap(name, fn))
 
     def restore():
@@ -2468,6 +2526,238 @@ def phase_system_inertial_async(device, seq, card):
     return kern.launches, matrix.launches
 
 
+def rig_settings(seq, rig, device, width, height, **kw) -> Settings:
+    """A user's settings for a rendered rig (datasets.synthetic.Rig): both
+    cameras, the radtan coefficients of a pinhole pair, the extrinsic, the
+    body rotated from camera 1 (T_b_c1), the IMU at 200 Hz, 8 levels and
+    1024 features."""
+    T_b_c1 = np.eye(4)
+    T_b_c1[:3, :3] = rig.R_bc
+    make = make_pinhole if rig.kind == "radtan" else make_kannala_brandt8
+    return Settings(
+        camera_type="PinHole" if rig.kind == "radtan" else "KannalaBrandt8",
+        camera1=make(*rig.params1, width, height, device=device),
+        camera2=make(*rig.params2, width, height, device=device),
+        dist1=rig.dist1, dist2=rig.dist2, T_c1_c2=rig.T_c1_c2,
+        bf=seq.fx * seq.baseline, baseline=seq.baseline, width=width, height=height,
+        n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
+        T_b_c1=T_b_c1, imu_frequency=200.0, **kw,
+    )
+
+
+def run_rig(system, seq, n, inertial, stages=None):
+    """The first `n` frames of `seq` through `system` (with their IMU
+    samples if `inertial`), one tracker_step row each, with the stage
+    launches of the frame when `stages` (watch_tracker_stages' counts) is
+    given."""
+    log, t_prev = [], -1.0
+    for f in seq.frames[:n]:
+        before = stage_snapshot(stages) if stages is not None else None
+        imu = imu_between(seq, t_prev, f.timestamp) if inertial else None
+        r = tracker_step(system.tracker, f, entry=system, imu=imu if inertial else None)
+        r["imu_initialized"] = bool(system.atlas.current.imu_initialized)
+        if stages is not None:
+            r["stages"] = stage_delta(stage_snapshot(stages), before)
+        log.append(r)
+        t_prev = f.timestamp
+    return log
+
+
+def rig_report(log, system, seq, name, ate_limit=ATE_LIMIT_M):
+    """Checks shared by phases 22a and 23a: every frame OK with a finite
+    pose, the IMU initialized, |bg| (the stream has none), the ATE; returns
+    (init frame, ATE, ms/frame median and p90 of the frames after the
+    first two, of fused and stepwise frames)."""
+    for i, r in enumerate(log):
+        check(r["state"] == "OK", f"{name} frame {i}: state {r['state']}")
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"{name} frame {i}: pose")
+    check(any(r["imu_initialized"] for r in log), f"{name}: the IMU never initialized")
+    init = next(i for i, r in enumerate(log) if r["imu_initialized"])
+    bg = system.tracker.bias[0]
+    check(np.linalg.norm(bg) < 0.05, f"{name}: gyro bias {bg} (the stream has none)")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == len(log) and ate["rmse"] <= ate_limit,
+          f"{name}: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ate_limit} m")
+
+    def ms(rows):
+        v = [r["ms"] for r in rows]
+        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
+
+    times = {"all frames": ms(log[2:]),
+             "fused": ms([r for r in log[2:] if r["path"] == "fused"]),
+             "stepwise": ms([r for r in log[2:] if r["path"] == "stepwise"])}
+    # the trajectory keeps each frame's pose as tracked: frames up to the
+    # init are in the world before its rotation, the others after it
+    traj = system.tracker.trajectory
+    ate["rmse_before_init"] = trajectory_ate(traj[:init + 1], seq)["rmse"]
+    ate["rmse_after_init"] = trajectory_ate(traj[init + 1:], seq)["rmse"]
+    return init, ate, times, bg
+
+
+def phase_rectified_inertial(device, seq, rig, card):
+    """EuRoC's rig as distributed: System(Sensor.IMU_STEREO) in its default
+    configuration (the shipped vocabulary) over a distorted pinhole pair
+    with a rotated extrinsic, rectified at start-up (the remap tables once,
+    both images remapped on the host every frame) and the IMU extrinsic
+    composed with the rectifying rotation (ROADMAP F10)."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = System(rig_settings(seq, rig, device, W, H), Sensor.IMU_STEREO, device=device)
+    check(system._rect is not None, "phase 22a: the pair was not rectified")
+    R1 = system._rect.R1
+    r1_deg = float(np.degrees(np.arccos(np.clip((np.trace(R1) - 1) / 2, -1, 1))))
+    log = run_rig(system, seq, N_RIG_FRAMES, inertial=True)
+    system.shutdown()
+    init, ate, times, bg = rig_report(log, system, seq, "phase 22a")
+    remap = system.stats.series["rectify_remap"]
+    check(len(remap) == N_RIG_FRAMES, f"phase 22a: {len(remap)} remapped frames")
+    fused = [r for r in log if r["path"] == "fused"]
+    for r in fused:
+        check(r["fetches"] == 1, f"phase 22a: {r['fetches']} fetches on a fused frame")
+    print(
+        f"phase 22a rectified EuRoC pair, stereo-inertial, default configuration: "
+        f"{len(log)} rendered {W}x{H} frames of a radtan pair (camera 2 rotated "
+        f"0.8 deg; R1 {r1_deg:.3f} deg; new fx {float(system.tracker.camera.params[0]):.3f}, "
+        f"bf {system.settings.bf:.4f}) through System.track_stereo(..., imu=...) on {card}: "
+        f"every frame OK; IMU initialized at frame {init}, |bg| {np.linalg.norm(bg):.5f} "
+        f"rad/s; {len(fused)} fused frames (1 fetch each); ATE RMSE {ate['rmse']:.4f} m "
+        f"(limit {ATE_LIMIT_M}; up to init {ate['rmse_before_init']:.4f}, after it "
+        f"{ate['rmse_after_init']:.4f}); ms/frame median, p90 (count), the remap included: "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; the host remap of both images alone: median {np.median(remap):.3f} ms, p90 "
+        f"{np.percentile(remap, 90):.3f} ms; keyframes {system.atlas.current.n_keyframes()}; "
+        f"top-k launches {kern.launches} ({dict(kern.launches_by_k)} by K), matrix launches "
+        f"{matrix.launches}"
+    )
+    return kern.launches, matrix.launches
+
+
+def phase_resize(device, seq, rig, card):
+    """Camera.newWidth / newHeight: the visual System (the shipped
+    vocabulary) given the same distorted pair at 752x480 and asked for
+    376x240: the intrinsics scaled once, every frame resized on the host,
+    then rectified at the working size."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    w, h = RESIZE_TO
+    system = System(rig_settings(seq, rig, device, W, H, new_width=w, new_height=h),
+                    Sensor.STEREO, device=device)
+    check(system.tracker.cfg.width == w and system.tracker.cfg.height == h
+          and system._rect is not None, "phase 22b: not resized and rectified")
+    log = run_rig(system, seq, N_RESIZE_FRAMES, inertial=False)
+    system.shutdown()
+    for i, r in enumerate(log):
+        check(r["state"] == "OK", f"phase 22b frame {i}: state {r['state']}")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == N_RESIZE_FRAMES and ate["rmse"] <= ATE_LIMIT_M,
+          f"phase 22b: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
+    times = [r["ms"] for r in log[2:]]
+    series = system.stats.series
+    print(
+        f"phase 22b input resize: {N_RESIZE_FRAMES} frames of phase 22a's {W}x{H} pair through "
+        f"System(Sensor.STEREO) asked for {w}x{h} on {card}: every frame OK; ATE RMSE "
+        f"{ate['rmse']:.4f} m (limit {ATE_LIMIT_M}); ms/frame median {np.median(times):.3f}, p90 "
+        f"{np.percentile(times, 90):.3f} over {len(times)}, of it on the host: resize "
+        f"{np.median(series['input_resize']):.3f} ms, remap {np.median(series['rectify_remap']):.3f} "
+        f"ms (medians); keyframes {system.atlas.current.n_keyframes()}; top-k launches "
+        f"{kern.launches}, matrix launches {matrix.launches}"
+    )
+    return kern.launches, matrix.launches
+
+
+FISHEYE_STAGE = ("fisheye", frame_pipeline, "match_fisheye")   # the fisheye frame's K = 2
+
+
+def phase_fisheye_inertial(device, seq, rig, card):
+    """TUM-VI's rig as distributed: System(Sensor.IMU_STEREO) in its default
+    configuration over a KB8 fisheye pair, which takes the fisheye route:
+    both images extracted on the card, the pair matched by one launch of
+    the top-K kernel at K = 2 and triangulated there, depth where the match
+    passes the parallax and reprojection gates."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = System(rig_settings(seq, rig, device, KB8_SIZE, KB8_SIZE), Sensor.IMU_STEREO,
+                    device=device)
+    check(system.tracker.stereo_rig is not None, "phase 23a: no fisheye rig")
+    lc_rows = []
+    watch_loop_closer(system.loop_closer, lc_rows)
+    stages, restore = watch_tracker_stages(TRACKER_STAGES + (FISHEYE_STAGE,))
+    try:
+        log = run_rig(system, seq, N_RIG_FRAMES, inertial=True, stages=stages)
+    finally:
+        restore()
+    system.shutdown()
+    init, ate, times, bg = rig_report(log, system, seq, "phase 23a", FISHEYE_ATE_LIMIT_M)
+    first = log[0]
+    check(first["stereo"] >= MIN_FISHEYE_DEPTHS,
+          f"phase 23a: {first['stereo']} keypoints with a triangulated depth on frame 0")
+    for i, r in enumerate(log):
+        st = r["stages"]
+        check(st["fisheye"][2] == 1 and st["fisheye"][0] == 1,
+              f"phase 23a frame {i}: {st['fisheye'][0]} K = 2 launches in {st['fisheye'][2]} "
+              "fisheye matches, not one")
+        if r["path"] == "fused":
+            check(r["fetches"] == 1, f"phase 23a frame {i}: {r['fetches']} fetches, fused")
+    fused = [r for r in log if r["path"] == "fused"]
+    after = log[init + 1:]
+    # no gate on the fused share: with few close depths the keyframe rule
+    # (ROADMAP F12) makes a keyframe on most frames after init, and a frame
+    # after a map change goes stepwise (F8); both rules are the JAX package's
+    stepwise_after = sum(r["path"] == "stepwise" for r in after)
+    k2_fisheye = sum(r["stages"]["fisheye"][0] for r in log)
+    print(
+        f"phase 23a KB8 fisheye pair, stereo-inertial, default configuration: {len(log)} "
+        f"rendered {KB8_SIZE}x{KB8_SIZE} frames through System.track_stereo(..., imu=...) on "
+        f"{card}: every frame OK; frame 0: {first['stereo']} keypoints with a triangulated "
+        f"depth; one K = 2 launch (match_fisheye) per frame, {k2_fisheye} in all; IMU "
+        f"initialized at frame {init}, |bg| {np.linalg.norm(bg):.5f} rad/s; {len(fused)} fused "
+        f"frames (1 fetch each), {stepwise_after} of the {len(after)} frames after init "
+        f"stepwise; keyframes processed {int(sum(system.stats.series['lm_keyframes']))}; "
+        f"ATE RMSE {ate['rmse']:.4f} m (limit {FISHEYE_ATE_LIMIT_M:.4f}: "
+        f"twice the JAX package's {FISHEYE_JAX_ATE_M} m on these frames; up to init "
+        f"{ate['rmse_before_init']:.4f}, after it {ate['rmse_after_init']:.4f}); ms/frame "
+        f"median, p90 (count): "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; keyframes {system.atlas.current.n_keyframes()}, map points "
+        f"{system.atlas.current.n_mappoints()}; top-k launches {kern.launches} "
+        f"({dict(kern.launches_by_k)} by K), matrix launches {matrix.launches}; the loop "
+        f"closer {len(lc_rows)} keyframes"
+    )
+    return kern.launches, matrix.launches, k2_fisheye
+
+
+def phase_fisheye_card_vs_cpu(device, seq, rig, card):
+    """The first frames of the KB8 pair through the visual System on the
+    card and through System(device="cpu"): the same state, path and
+    keyframes per frame, poses within 1e-3."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    logs = []
+    for dev in (device, "cpu"):
+        system = System(rig_settings(seq, rig, dev, KB8_SIZE, KB8_SIZE), Sensor.STEREO,
+                        vocabulary=False, device=dev)
+        logs.append(run_rig(system, seq, N_FISHEYE_CPU_FRAMES, inertial=False))
+        system.shutdown()
+        if dev == device:
+            launches = (kern.launches, matrix.launches)
+    worst = {"frames": N_FISHEYE_CPU_FRAMES, "pose_R_maxdiff": 0.0, "pose_t_maxdiff": 0.0}
+    for i, (gpu, cpu) in enumerate(zip(*logs)):
+        dR = float(np.abs(cpu["R"] - gpu["R"]).max())
+        dt = float(np.abs(cpu["t"] - gpu["t"]).max())
+        check((cpu["state"], cpu["path"], cpu["keyframes"]) == (gpu["state"], gpu["path"],
+                                                                gpu["keyframes"])
+              and dR < 1e-3 and dt < 1e-3,
+              f"phase 23b frame {i}: CPU {cpu['state']}, {cpu['path']}, {cpu['keyframes']} "
+              f"keyframes; card {gpu['state']}, {gpu['path']}, {gpu['keyframes']}; pose diff "
+              f"{dR:.2e}, {dt:.2e}")
+        worst["pose_R_maxdiff"] = max(worst["pose_R_maxdiff"], dR)
+        worst["pose_t_maxdiff"] = max(worst["pose_t_maxdiff"], dt)
+    worst["paths"] = [r["path"] for r in logs[0]]
+    print(f"phase 23b KB8 fisheye pair, the visual System card against CPU ({card}): "
+          f"{json.dumps(worst)}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -2491,12 +2781,18 @@ def main():
             renderer.submit(generate_sequence, n_frames=N_INERTIAL_FRAMES, h=H, w=W),
             renderer.submit(generate_sequence, n_frames=N_LOOP_FRAMES, h=H, w=W,
                             trajectory="loop"),
+            renderer.submit(generate_sequence, n_frames=N_RIG_FRAMES, h=H, w=W,
+                            rig=synthetic.euroc_radtan_rig(W, H)),
+            renderer.submit(generate_sequence, n_frames=N_RIG_FRAMES, h=KB8_SIZE, w=KB8_SIZE,
+                            rig=synthetic.tumvi_kb8_rig(KB8_SIZE, KB8_SIZE),
+                            plane_z=KB8_PLANE_Z),
         )
         run_phases(device, kind, card, t_start, *sequences)
 
 
-def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
-    """Phases 2-21, then the kernels line and the last lines; the arguments
+def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, radtan_seq,
+               kb8_seq):
+    """Phases 2-23, then the kernels line and the last lines; the arguments
     after `t_start` are the futures of the rendered sequences."""
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
@@ -2582,6 +2878,23 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
     async_i_launches, async_i_matrix = phase_system_inertial_async(device, seq_i, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 21")
 
+    # 22. EuRoC's distorted pair (a: stereo-inertial, rectified; b: resized),
+    # 23. TUM-VI's KB8 fisheye pair (a: stereo-inertial; b: card against CPU)
+    t0 = time.perf_counter()
+    seq_r, seq_f = radtan_seq.result(), kb8_seq.result()
+    print(f"rendered {N_RIG_FRAMES} frames of a radtan pair at {W}x{H} and {N_RIG_FRAMES} of a "
+          f"KB8 pair at {KB8_SIZE}x{KB8_SIZE} with their IMU streams (waited "
+          f"{time.perf_counter() - t0:.1f} s for them)")
+    rect_launches, rect_matrix = phase_rectified_inertial(
+        device, seq_r, synthetic.euroc_radtan_rig(W, H), card)
+    resize_launches, resize_matrix = phase_resize(
+        device, seq_r, synthetic.euroc_radtan_rig(W, H), card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 22")
+    kb8_rig = synthetic.tumvi_kb8_rig(KB8_SIZE, KB8_SIZE)
+    fish_launches, fish_matrix, fish_k2 = phase_fisheye_inertial(device, seq_f, kb8_rig, card)
+    fish_cpu_launches, fish_cpu_matrix = phase_fisheye_card_vs_cpu(device, seq_f, kb8_rig, card)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 23")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -2596,7 +2909,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches": hot_launches + fused_launches + tracker_launches + system_launches
             + inertial_launches + toggle_launches + host_i_launches + reloc_all
             + map_launches["topk"] + loop_all + inertial_loop["topk"] + merge_all["topk"]
-            + merge_sys_all + threads_lc["topk"] + async_i_launches,
+            + merge_sys_all + threads_lc["topk"] + async_i_launches + rect_launches
+            + resize_launches + fish_launches + fish_cpu_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -2620,6 +2934,12 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches_merge": merge["k2"] + merge_sys["k2"],
             "launches_loop_threads": threads_lc["topk"],
             "launches_system_inertial_async": async_i_launches,
+            # phases 22-23: the rectified EuRoC pair (inertial, resized), the
+            # KB8 pair (inertial; the visual System's frames of 23b on the card)
+            "launches_rectified_inertial": rect_launches,
+            "launches_resized": resize_launches,
+            "launches_fisheye_inertial": fish_launches,
+            "launches_fisheye_visual": fish_cpu_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -2633,6 +2953,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "matrix_plus_torch_topk_ms": local_map["matrix_plus_torch_topk_ms"],
             # its second use: match_fisheye's best and second best (K = 2)
             "k2": {"shape": [1024, 1024], "k": 2, "launches_tracker": tracker_k2,
+                   "launches_fisheye_frames": fish_k2,
                    **{key: top2[key] for key in timed + (
                        "replaced_ms", "matrix_plus_torch_topk_ms")}},
             # K = 1: the flat vocabulary's quantization (the loop closers of
@@ -2660,7 +2981,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches": hot_matrix + fused_matrix + tracker_matrix + system_matrix
             + inertial_matrix + toggle_matrix + host_i_matrix + reloc_matrix
             + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
-            + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix,
+            + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix
+            + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -2680,6 +3002,10 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "launches_merge": merge["matrix"] + merge_sys["matrix"],
             "launches_loop_threads": threads_lc["matrix"],
             "launches_system_inertial_async": async_i_matrix,
+            "launches_rectified_inertial": rect_matrix,
+            "launches_resized": resize_matrix,
+            "launches_fisheye_inertial": fish_matrix,
+            "launches_fisheye_visual": fish_cpu_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -2687,8 +3013,14 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
             "bound_ms": search["bound_ms"],
             "bound_by": search["bound_by"],
             "timer": search["timer"],
-            "library_ms": None,   # no one PyTorch call computes it
-            "fusion": {"shape": list(FUSION_SHAPE), **{key: fusion[key] for key in timed}},
+            # torch._int_mm of the +-1 descriptors: the product the kernel
+            # computes in its body, without the penalties
+            "library_ms": search["library_ms"],
+            "library": "torch._int_mm (product only, no penalties)",
+            "library_ms_by_shape": {f"{M}x{N}": matrix_rows[(M, N)]["library_ms"]
+                                    for M, N in MATRIX_SHAPES},
+            "fusion": {"shape": list(FUSION_SHAPE),
+                       **{key: fusion[key] for key in timed + ("library_ms",)}},
         },
     ]}))
     check(inertial_launches > 0 and inertial_matrix > 0,
@@ -2698,7 +3030,10 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq):
     check(inertial_loop["k1"] > 0 and inertial_loop["k2"] > 0 and merge["k2"] > 0
           and merge["matrix"] > 0 and threads_lc["topk"] > 0 and async_i_launches > 0
           and async_i_matrix > 0, "a kernel was not launched on the paths of phases 19-21")
-    print(f"chip_smoke: all 21 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(rect_launches > 0 and rect_matrix > 0 and resize_launches > 0 and fish_launches > 0
+          and fish_k2 > 0 and fish_matrix > 0 and fish_cpu_launches > 0,
+          "a kernel was not launched on the paths of phases 22-23")
+    print(f"chip_smoke: all 23 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

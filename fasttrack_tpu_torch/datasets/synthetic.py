@@ -9,6 +9,13 @@ plane; images are rendered by exact ray-plane intersection + bilinear
 texture sampling, IMU samples are derived analytically from the continuous
 trajectory. Used by the end-to-end tracking tests and the self-contained
 demo script.
+
+`generate_sequence(rig=...)` renders the two camera rigs of the reference's
+datasets instead of the default rectified pinhole pair: a distorted
+(radial-tangential) pinhole pair as EuRoC ships it, or a Kannala-Brandt-8
+fisheye pair as TUM-VI does, camera 2 posed by a rotated T_c1_c2 and the
+IMU stream expressed in a body frame rotated from camera 1. Without `rig`
+the output is bit-equal to the JAX package's renderer.
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ from typing import NamedTuple
 import numpy as np
 from scipy.ndimage import map_coordinates, zoom
 
+from fasttrack_tpu_torch.cameras.host import HostCamera, unproject_np
+from fasttrack_tpu_torch.cameras.rectify import distort_pinhole
 from fasttrack_tpu_torch.imu.preintegration import GRAVITY_VALUE
-
 
 
 def make_texture(rng, size=2048):
@@ -62,8 +70,98 @@ class SyntheticSequence(NamedTuple):
     gt_R: np.ndarray       # (F, 3, 3) R_wc
 
 
+class Rig(NamedTuple):
+    """A rendered stereo rig. `kind` "radtan": pinhole intrinsics
+    [fx fy cx cy] with plumb-bob distortion D = [k1 k2 p1 p2 (k3)] per
+    camera; "kb8": [fx fy cx cy k0 k1 k2 k3] per camera and no D."""
+
+    kind: str
+    params1: np.ndarray
+    params2: np.ndarray
+    T_c1_c2: np.ndarray            # 4x4 camera 1 <- camera 2
+    R_bc: np.ndarray               # 3x3 body <- camera 1 (zero lever arm)
+    dist1: np.ndarray | None = None
+    dist2: np.ndarray | None = None
+    # a fisheye's image circle: rays further off the axis than `fov_deg`
+    # fade to black over FOV_FADE_DEG (where the plane would be seen at a
+    # grazing angle, its texture aliased to noise)
+    fov_deg: float | None = None
+
+
+FOV_FADE_DEG = 15.0
+
+
+def _rot(axis: int, angle: float) -> np.ndarray:
+    c, s_ = np.cos(angle), np.sin(angle)
+    i, j = [(1, 2), (2, 0), (0, 1)][axis]
+    R = np.eye(3)
+    R[i, i] = R[j, j] = c
+    R[i, j], R[j, i] = -s_, s_
+    return R
+
+
+def _extrinsic(baseline: float, tilt_x: float) -> np.ndarray:
+    T = np.eye(4)
+    T[:3, :3] = _rot(0, tilt_x)
+    T[:3, 3] = [baseline, 0.0, 0.0]
+    return T
+
+
+def euroc_radtan_rig(w: int = 752, h: int = 480, baseline: float = 0.11,
+                     tilt_x_deg: float = 0.8, body_yaw_deg: float = 90.0) -> Rig:
+    """A distorted pinhole pair with EuRoC cam0's intrinsics and radtan
+    coefficients (scaled to w x h from 752 x 480), camera 2 `baseline` m
+    along x and rotated `tilt_x_deg` about x, the body rotated from camera 1
+    by `body_yaw_deg` about z (EuRoC's cam0 sits in its body nearly so)."""
+    sx, sy = w / 752.0, h / 480.0
+    p1 = np.array([458.654 * sx, 457.296 * sy, 367.215 * sx, 248.375 * sy])
+    p2 = np.array([457.587 * sx, 456.134 * sy, 379.999 * sx, 255.238 * sy])
+    return Rig("radtan", p1, p2, _extrinsic(baseline, np.deg2rad(tilt_x_deg)),
+               _rot(2, np.deg2rad(body_yaw_deg)),
+               np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]),
+               np.array([-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05]))
+
+
+def tumvi_kb8_rig(w: int = 512, h: int = 512, baseline: float = 0.101,
+                  tilt_x_deg: float = 0.8, body_yaw_deg: float = 90.0,
+                  fov_deg: float = 75.0) -> Rig:
+    """A KB8 fisheye pair with TUM-VI's intrinsics and coefficients
+    (512 x 512; scaled to w x h), posed as `euroc_radtan_rig`'s, its image
+    circle `fov_deg` off the axis."""
+    sx, sy = w / 512.0, h / 512.0
+    k = [0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202,
+         0.00020293673591811182]
+    p1 = np.array([190.97847715128717 * sx, 190.9733070521226 * sy,
+                   254.93170605935475 * sx, 256.8974428996504 * sy, *k])
+    p2 = np.array([190.44236969414825 * sx, 190.4344384721956 * sy,
+                   252.59949716835982 * sx, 254.91723064636983 * sy,
+                   0.0034003170790442797, 0.001766278153469831,
+                   -0.00266312569781606, 0.0003299517423931039])
+    return Rig("kb8", p1, p2, _extrinsic(baseline, np.deg2rad(tilt_x_deg)),
+               _rot(2, np.deg2rad(body_yaw_deg)), fov_deg=fov_deg)
+
+
+def pixel_rays(kind: str, params, dist, h: int, w: int, iters: int = 50) -> np.ndarray:
+    """(h, w, 3) rays with z == 1 through every pixel of a camera: "kb8" by
+    the host unprojection, "radtan" by inverting the plumb-bob distortion
+    per pixel (fixed-point steps; the distortion is monotonic over the
+    image for EuRoC's coefficients)."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    p = np.asarray(params, np.float64)
+    if kind == "kb8":
+        return unproject_np(HostCamera("kb8", p, w, h), np.stack([xs, ys], -1))
+    xd = (xs - p[2]) / p[0]
+    yd = (ys - p[3]) / p[1]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        xt, yt = distort_pinhole(np.asarray(dist, np.float64), x, y)
+        x += xd - xt
+        y += yd - yt
+    return np.stack([x, y, np.ones_like(x)], -1)
+
+
 def _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z, camera=None,
-            fg_centers=((0.0, 0.0),)):
+            fg_centers=((0.0, 0.0),), rays=None):
     """Render a two-depth scene from camera pose (R_wc, t_wc).
 
     Background plane at z=plane_z plus foreground textured squares at
@@ -75,11 +173,11 @@ def _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z, camera=None,
     scene. Long loop trajectories pass several centers so depth structure
     stays in view over the whole lap."""
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    if camera is not None:
+    if rays is not None:
+        d = rays        # (h, w, 3) per-pixel rays of a camera (pixel_rays)
+    elif camera is not None:
         # arbitrary camera model (a cameras.host.HostCamera, e.g. KB8
         # fisheye) via host unprojection
-        from fasttrack_tpu_torch.cameras.host import unproject_np
-
         d = unproject_np(camera, np.stack([xs, ys], -1))
     else:
         d = np.stack(
@@ -123,12 +221,19 @@ def generate_sequence(
     seed=0,
     motion_scale=1.0,
     trajectory="sweep",
+    rig: Rig | None = None,
 ) -> SyntheticSequence:
     """trajectory="sweep" (default): the small oscillation used by the unit
     tests. trajectory="loop": long lateral laps that RETURN to the start —
     every lap revisits earlier views, giving loop-closure opportunities and
     the accumulate-then-correct drift profile of a real EuRoC MH lap
-    (euroc_eval_examples.sh sequences)."""
+    (euroc_eval_examples.sh sequences).
+
+    `rig`: render its two cameras instead (camera 1 on the trajectory,
+    camera 2 at camera 1's pose times `rig.T_c1_c2`; `baseline` is ignored)
+    and give the IMU stream in the rig's body frame (f_b = R_bc f_c,
+    w_b = R_bc w_c); fx, fy, cx, cy are camera 1's and `baseline` the
+    length of T_c1_c2's translation. The ground truth is camera 1's."""
     rng = np.random.default_rng(seed)
     tex = make_texture(rng)
     # Longer focal keeps stereo well-conditioned: disparity = fx*b/z ~ 7 px
@@ -209,16 +314,33 @@ def generate_sequence(
         else ((0.0, 0.0),)
     )
 
+    rays1 = rays2 = None
+    R_12, t_12 = np.eye(3), np.array([baseline, 0, 0])
+    fade1 = fade2 = None
+    if rig is not None:
+        rays1 = pixel_rays(rig.kind, rig.params1, rig.dist1, h, w)
+        rays2 = pixel_rays(rig.kind, rig.params2, rig.dist2, h, w)
+        if rig.fov_deg is not None:
+            fade1, fade2 = (np.clip((rig.fov_deg - np.degrees(np.arctan(np.hypot(
+                r[..., 0], r[..., 1])))) / FOV_FADE_DEG, 0.0, 1.0).astype(np.float32)
+                for r in (rays1, rays2))
+        R_12, t_12 = rig.T_c1_c2[:3, :3], rig.T_c1_c2[:3, 3]
+        fx, fy, cx, cy = (float(v) for v in rig.params1[:4])
+        baseline = float(np.linalg.norm(t_12))
+
     frames = []
     gt_pos, gt_R, gt_t = [], [], []
     for i in range(n_frames):
         t = i / fps
         R_wc, t_wc = pose_at(t)
         left = _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z,
-                       fg_centers=fg_centers)
-        t_wc_r = t_wc + R_wc @ np.array([baseline, 0, 0])
-        right = _render(tex, scale_px, K, R_wc, t_wc_r, h, w, plane_z,
-                        fg_centers=fg_centers)
+                       fg_centers=fg_centers, rays=rays1)
+        t_wc_r = t_wc + R_wc @ t_12
+        R_wc_r = R_wc if rig is None else R_wc @ R_12
+        right = _render(tex, scale_px, K, R_wc_r, t_wc_r, h, w, plane_z,
+                        fg_centers=fg_centers, rays=rays2)
+        if fade1 is not None:
+            left, right = left * fade1, right * fade2
         frames.append(SyntheticFrame(t, left, right, R_wc, t_wc))
         gt_pos.append(t_wc)
         gt_R.append(R_wc)
@@ -242,6 +364,9 @@ def generate_sequence(
         # vee(log(dR)) / eps, small-angle
         w_hat = (dR - dR.T) / 2
         gyr.append(np.array([w_hat[2, 1], w_hat[0, 2], w_hat[1, 0]]) / eps)
+    if rig is not None:
+        acc = np.asarray(acc) @ rig.R_bc.T
+        gyr = np.asarray(gyr) @ rig.R_bc.T
 
     return SyntheticSequence(
         frames=frames,

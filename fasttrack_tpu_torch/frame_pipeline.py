@@ -1,8 +1,9 @@
 """The per-frame tracking front end: images -> device-resident FrameData.
 
-Port of fasttrack_tpu/frame_pipeline.py (rectified stereo): ORB
-extraction for both cameras, rectified stereo matching, search-by-
-projection against a local map and motion-only pose optimization. All
+Port of fasttrack_tpu/frame_pipeline.py (rectified and fisheye stereo): ORB
+extraction for both cameras, rectified stereo matching or the fisheye
+pair's brute-force match and triangulation, search-by-projection against
+a local map and motion-only pose optimization. All
 intermediates stay on the images' device and nothing in the chain reads a
 value back to the host; `pack_hot_path_for_host` gathers what the tracker
 needs into one buffer, so a frame costs exactly one device->host fetch.
@@ -15,15 +16,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fasttrack_tpu_torch.cameras.stereo import StereoRig, triangulate_matches
 from fasttrack_tpu_torch.geometry import SE3
 from fasttrack_tpu_torch.ops.extractor import (
     Keypoints,
     OrbConfig,
     extract_orb_pair_stacked,
+    level_tables,
     scale_factors,
 )
 from fasttrack_tpu_torch.ops.project_match import MatchResult, search_by_projection
-from fasttrack_tpu_torch.ops.stereo_match import StereoMatches, match_rectified
+from fasttrack_tpu_torch.ops.stereo_match import StereoMatches, match_fisheye, match_rectified
 from fasttrack_tpu_torch.optim.pose_opt import PoseOptResult, pose_optimize
 
 
@@ -73,6 +76,30 @@ def process_stereo_frame_stacked(
     kl, kr, pyr_l, pyr_r = extract_orb_pair_stacked(images, config)
     sm, n_valid = _stereo_match_stage(kl, kr, pyr_l.raw, pyr_r.raw, config, bf, min_z)
     return FrameData(kl, kr, sm.u_right, sm.depth, n_valid)
+
+
+def process_fisheye_frame_stacked(
+    images: torch.Tensor,     # (2, H, W) stacked L/R fisheye images (uint8 ok)
+    config: OrbConfig,
+    rig: StereoRig,           # a KB8 pair
+) -> FrameData:
+    """Fisheye stereo frame (Frame.cc fisheye ctor :1115-1203 +
+    ComputeStereoFishEyeMatches + KannalaBrandt8::TriangulateMatches):
+    all-pairs Hamming + Lowe ratio across the two cameras (one launch of
+    the top-K kernel at K = 2), then parallax- and reprojection-gated
+    triangulation gives matched left keypoints a depth. u_right stays -1
+    (no rectified row geometry); depth drives stereo-point creation as the
+    reference's mvDepth does. Nothing here reads a value back to the host."""
+    kl, kr, _, _ = extract_orb_pair_stacked(images, config)
+    fm = match_fisheye(kl.desc_signed, kl.valid, kr.desc_signed, kr.valid)
+    scale2 = level_tables(config, kl.x.device).sigma2
+    j = fm.idx_right.long()
+    uv_l = torch.stack([kl.x, kl.y], dim=-1)
+    uv_r = torch.stack([kr.x[j], kr.y[j]], dim=-1)
+    z, _, tri_ok = triangulate_matches(rig, uv_l, uv_r, scale2[kl.level], scale2[kr.level[j]])
+    good = fm.valid & tri_ok & kl.valid
+    neg = torch.full_like(kl.x, -1.0)
+    return FrameData(kl, kr, neg, torch.where(good, z, -1.0), kl.valid.sum())
 
 
 def tracking_hot_path(

@@ -74,8 +74,10 @@ class Keypoints(NamedTuple):
 
 
 class LevelTables(nn.Module):
-    """Per-config constants: the level scale factors and, for the flat
-    two-camera keypoint list, each slot's absolute level in [0, 2L)."""
+    """Per-config constants: the level scale factors, their squares (each
+    level's sigma^2, rounded from the float64 power as the JAX package
+    does) and, for the flat two-camera keypoint list, each slot's absolute
+    level in [0, 2L)."""
 
     def __init__(self, config: OrbConfig):
         super().__init__()
@@ -83,7 +85,9 @@ class LevelTables(nn.Module):
         per_level2 = config.per_level_features() * 2
         scales = np.asarray([config.scale_factor**l for l in range(L)], np.float32)
         lvl2 = np.concatenate([np.full(k, l2, np.int64) for l2, k in enumerate(per_level2)])
+        sigma2 = np.asarray([config.scale_factor ** (2 * l) for l in range(L)], np.float32)
         self.register_buffer("scales", torch.from_numpy(scales))
+        self.register_buffer("sigma2", torch.from_numpy(sigma2))
         self.register_buffer("lvl2", torch.from_numpy(lvl2))
 
 

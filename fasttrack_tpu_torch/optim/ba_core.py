@@ -3,8 +3,8 @@
 Port of fasttrack_tpu/optim/ba_core.py: ONE implementation of the
 (landmark x camera) BA building blocks, consumed by the window solver
 (optim.local_ba). Where the JAX package differentiates the residual with
-jax.jacfwd under two vmaps, the port writes the pinhole Jacobians out in
-closed form (one pass of elementwise kernels over the (L, K) grid instead of
+jax.jacfwd under two vmaps, the port writes the Jacobians of both camera
+models out in closed form (one pass of elementwise kernels over the (L, K) grid instead of
 a traced program per observation pair). The batched inverses and the reduced
 solve go through `inv_ex` / `solve_ex`, which leave their error check to the
 caller and so never synchronise with the device.
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from fasttrack_tpu_torch.cameras.models import PINHOLE, Camera, project
+from fasttrack_tpu_torch.cameras.models import Camera, project, project_jacobian_rows
 from fasttrack_tpu_torch.geometry import SE3, hat, se3_apply, se3_compose, se3_exp
 from fasttrack_tpu_torch.optim.robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
@@ -48,27 +48,20 @@ def residuals(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):
 
 
 def projection_jacobian(cam: Camera, bf, Xc, is_stereo):
-    """(..., 3, 3) d(u, v, ur)/d(Xc) of the pinhole stereo projection, the
-    stereo row zero where `is_stereo` is False. Mirrors the clamps of
-    `_project_pinhole` (|z| < 1e-9) and of the stereo term (z < 1e-6), which
-    hold the clamped depth constant, as differentiating through them does."""
-    if cam.kind != PINHOLE:
-        raise NotImplementedError(f"projection Jacobian for camera kind {cam.kind!r}")
-    fx, fy = cam.params[0], cam.params[1]
-    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
-    z_free = torch.abs(z) >= 1e-9
-    inv_z = 1.0 / torch.where(z_free, z, 1e-9)
-    zero = torch.zeros_like(z)
-    du_dz = torch.where(z_free, -fx * x * inv_z * inv_z, 0.0)
-    dv_dz = torch.where(z_free, -fy * y * inv_z * inv_z, 0.0)
+    """(..., 3, 3) d(u, v, ur)/d(Xc) of the stereo projection of either
+    camera model, the stereo row zero where `is_stereo` is False (every
+    fisheye edge: its u_right is -1). The u and v rows are
+    `cameras.models.project_jacobian`'s; the stereo term u - bf / z holds
+    its clamped depth (z < 1e-6) constant, as differentiating through the
+    clamp does."""
+    du, dv = project_jacobian_rows(cam, Xc)
+    z = Xc[..., 2]
     zc = torch.clamp(z, min=1e-6)
     dstereo_dz = torch.where(z > 1e-6, bf / (zc * zc), 0.0)
-    st = is_stereo.to(z.dtype)
-    return torch.stack([
-        torch.stack([fx * inv_z, zero, du_dz], dim=-1),
-        torch.stack([zero, fy * inv_z, dv_dz], dim=-1),
-        torch.stack([st * fx * inv_z, zero, st * (du_dz + dstereo_dz)], dim=-1),
-    ], dim=-2)
+    zero = torch.zeros_like(z)
+    st = is_stereo.to(z.dtype)[..., None]
+    dur = st * (du + torch.stack([zero, zero, dstereo_dz], dim=-1))
+    return torch.stack([du, dv, dur], dim=-2)
 
 
 def jacobians(poses: SE3, points, cam: Camera, bf, obs_uv, obs_ur):

@@ -105,7 +105,12 @@ def local_bundle_adjustment(
         chi2_new, w_new = weights(r_new, inlier * (~behind_new), use_robust)
         c_old = torch.sum(chi2 * (w > 0))
         c_new = torch.sum(chi2_new * (w_new > 0))
-        step_ok = torch.isfinite(dxc).all() & torch.isfinite(dxp).all()
+        # A step that moves a live observation behind its camera drops that
+        # observation from c_new; it is rejected, or a window of mono edges
+        # (a fisheye map's) can lower its cost by flipping its points behind
+        # the cameras. The JAX package accepts such a step (ROADMAP F24).
+        flipped = ((live > 0) & behind_new).any()
+        step_ok = torch.isfinite(dxc).all() & torch.isfinite(dxp).all() & ~flipped
         accept = (c_new < c_old) & step_ok
         poses = SE3(
             torch.where(accept, poses_new.R, poses.R),

@@ -6,8 +6,8 @@ Levenberg-Marquardt iterations; after each round, edges are re-classified
 inlier/outlier by chi2 against 5.991 (mono) / 7.815 (stereo); rounds 0-1
 use a Huber kernel. Outliers stay in the problem as zero-weight residuals,
 so every shape is fixed. Where the JAX package differentiates the residual
-with jax.jacfwd, the port uses the analytic Jacobian of the pinhole
-residual under a left perturbation exp(xi) o T. The iterations accept or
+with jax.jacfwd, the port uses the analytic Jacobian of the residual (either
+camera model) under a left perturbation exp(xi) o T. The iterations accept or
 reject a step with torch.where, so the loop never synchronises with the
 device.
 """
@@ -18,8 +18,9 @@ from typing import NamedTuple
 
 import torch
 
-from fasttrack_tpu_torch.cameras.models import PINHOLE, Camera, project
+from fasttrack_tpu_torch.cameras.models import Camera, project
 from fasttrack_tpu_torch.geometry import SE3, hat, se3_apply, se3_compose, se3_exp
+from fasttrack_tpu_torch.optim.ba_core import projection_jacobian
 from fasttrack_tpu_torch.optim.robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
 
@@ -43,30 +44,12 @@ def _residuals(T: SE3, cam: Camera, bf, Xw, obs_uv, obs_ur, is_stereo):
 
 
 def _jacobian(cam: Camera, bf, Xc, is_stereo):
-    """(N, 3, 6) d(residual)/d(xi) at xi = 0 for the pose exp(xi) o T.
-
-    d(Xc)/d(xi) = [I | -hat(Xc)]; the projection's derivative mirrors the
-    clamps of `_project_pinhole` (|z| < 1e-9) and of the stereo term
-    (z < 1e-6), which hold the clamped depth constant."""
-    fx, fy = cam.params[0], cam.params[1]
-    x, y, z = Xc[:, 0], Xc[:, 1], Xc[:, 2]
-    z_free = torch.abs(z) >= 1e-9
-    sz = torch.where(z_free, z, 1e-9)
-    inv_z = 1.0 / sz
-    zero = torch.zeros_like(z)
-    du_dz = torch.where(z_free, -fx * x * inv_z * inv_z, 0.0)
-    dv_dz = torch.where(z_free, -fy * y * inv_z * inv_z, 0.0)
-    zc = torch.clamp(z, min=1e-6)
-    dstereo_dz = torch.where(z > 1e-6, bf / (zc * zc), 0.0)
-    dP = torch.stack([
-        torch.stack([fx * inv_z, zero, du_dz], dim=-1),
-        torch.stack([zero, fy * inv_z, dv_dz], dim=-1),
-        torch.stack([fx * inv_z, zero, du_dz + dstereo_dz], dim=-1),
-    ], dim=-2)                                                  # (N, 3, 3) d(u, v, ur)/dXc
+    """(N, 3, 6) d(residual)/d(xi) at xi = 0 for the pose exp(xi) o T:
+    d(Xc)/d(xi) = [I | -hat(Xc)] after the projection's derivative
+    (ba_core.projection_jacobian, either camera model)."""
+    dP = projection_jacobian(cam, bf, Xc, is_stereo)            # (N, 3, 3) d(u, v, ur)/dXc
     dX = torch.cat([torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(dP), -hat(Xc)], dim=-1)
-    J = -(dP @ dX)                                              # residual = obs - prediction
-    stereo_row = torch.stack([torch.ones_like(z), torch.ones_like(z), is_stereo.to(z.dtype)], dim=-1)
-    return J * stereo_row[:, :, None]
+    return -(dP @ dX)                                           # residual = obs - prediction
 
 
 def pose_optimize(
@@ -81,8 +64,6 @@ def pose_optimize(
     rounds: int = 4,
     iters: int = 10,
 ) -> PoseOptResult:
-    if cam.kind != PINHOLE:
-        raise NotImplementedError(f"pose_optimize for camera kind {cam.kind!r}")
     is_stereo = obs_ur >= 0
     delta2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
     eye6 = torch.eye(6, dtype=Xw.dtype, device=Xw.device)

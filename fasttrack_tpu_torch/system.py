@@ -2,10 +2,21 @@
 public tracking API + trajectory persistence.
 
 Port of fasttrack_tpu/system.py for `Sensor.STEREO` and `Sensor.IMU_STEREO`
-over a rectified pinhole pair. Mirrors the reference: the constructor builds
-Atlas/Tracking/LocalMapping, TrackStereo is the entry point, then Shutdown
-and the trajectory savers in TUM / EuRoC / KITTI formats
-(System.cc:590-1285).
+over the two rigs the reference's datasets ship: a pinhole pair (EuRoC),
+rectified at start-up when it is distorted, and a Kannala-Brandt-8
+fisheye pair (TUM-VI), which takes the fisheye route. Mirrors the
+reference: the constructor builds Atlas/Tracking/LocalMapping, TrackStereo
+is the entry point, then Shutdown and the trajectory savers in TUM / EuRoC
+/ KITTI formats (System.cc:590-1285).
+
+Start-up camera transforms, in the JAX package's order: input resize
+(Camera.newWidth / newHeight: the intrinsics scaled once, every frame
+resized on the host), then rectification of a distorted pinhole pair with
+a known extrinsic (cameras/rectify.py: remap tables once, a host remap of
+both images every frame). The System works on a copy of the caller's
+Settings, which the JAX System rewrites in place. With an IMU the
+rectifying rotation R1 goes into the extrinsic, T_b_rect = T_b_c1 [R1^T|0],
+where the JAX System keeps T_b_c1 (ROADMAP F10).
 
 Place recognition is on by default for both sensors, as in the JAX
 package and the reference: `vocabulary=None` loads the port's shipped
@@ -15,24 +26,31 @@ the local mapper has processed it (inline, or through its own thread with
 which no live run does here or in the JAX package: ROADMAP F16) and
 welds a map started after a loss into the earlier one it revisits, and
 a lost tracker relocalizes against the keyframe database they share.
-`vocabulary=False` runs tracking and local mapping without them.
+`vocabulary=False` runs tracking and local mapping without them. On a KB8
+map the Sim3 solver and its refinement project through the pinhole K of
+camera 1's intrinsics, as in the JAX package (ROADMAP F21).
 
 Not ported, each raising NotImplementedError with its ROADMAP item when it
 is asked for, never taking another path quietly: the monocular and RGB-D
-sensors with and without an IMU, input resize, start-up rectification of a
-distorted pair, fisheye rigs and atlas save/load, inertial maps included
-(M9).
+sensors with and without an IMU and atlas save/load, inertial maps
+included (M9).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary
 from fasttrack_tpu_torch.cameras.host import host_camera
+from fasttrack_tpu_torch.cameras.models import Camera
+from fasttrack_tpu_torch.cameras.rectify import compute_rectification, remap_bilinear, resize_maps
+from fasttrack_tpu_torch.cameras.stereo import stereo_rig_from_numpy
 from fasttrack_tpu_torch.convert import imu_calib_from_numpy
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.kernels import KernelConfig, get_run_mode
@@ -84,31 +102,63 @@ class System:
             raise NotImplementedError(
                 f"the sensor {sensor.name} is not ported yet (ROADMAP M9)"
             )
-        if settings.new_width and settings.new_height and (
-            settings.new_width != settings.width
-            or settings.new_height != settings.height
-        ):
-            raise NotImplementedError(
-                "input resize (Camera.newWidth / newHeight) is not ported yet (ROADMAP M9)"
-            )
-        if settings.camera_type in ("KannalaBrandt8", "Fisheye"):
-            raise NotImplementedError("fisheye (KB8) rigs are not ported yet (ROADMAP M9)")
-        if _needs_rectification(settings):
-            raise NotImplementedError(
-                "start-up rectification of a distorted stereo pair "
-                "(cameras/rectify.py) is not ported yet (ROADMAP M9)"
-            )
         if settings.load_atlas or settings.save_atlas:
             raise NotImplementedError(
                 "atlas save/load (System.LoadAtlasFromFile / SaveAtlasToFile) is "
                 "not ported yet (ROADMAP M9)"
             )
         self.device = resolve(device)
+        settings = dataclasses.replace(settings)    # the caller's stays as it was
         self.settings = settings
         self.sensor = sensor
         self.kcfg = kernel_config or get_run_mode()
         self.stats = Stats()
         self.atlas = Atlas()
+
+        # Input resize (System.cc:273-284 resize branch): when the settings
+        # ask for another working resolution, scale the intrinsics once and
+        # resize every incoming frame bilinearly.
+        self._resize_to = None
+        if settings.new_width and settings.new_height and (
+            settings.new_width != settings.width
+            or settings.new_height != settings.height
+        ):
+            sx = settings.new_width / settings.width
+            sy = settings.new_height / settings.height
+
+            def scale_cam(c):
+                if c is None:
+                    return None
+                pp = c.params.detach().cpu().numpy().copy()   # float32, as the JAX package scales
+                pp[0] *= sx
+                pp[1] *= sy
+                pp[2] *= sx
+                pp[3] *= sy
+                return Camera(c.kind, torch.from_numpy(pp).to(self.device),
+                              settings.new_width, settings.new_height)
+
+            settings.camera1 = scale_cam(settings.camera1)
+            settings.camera2 = scale_cam(settings.camera2)
+            settings.bf *= sx
+            self._resize_to = (settings.new_height, settings.new_width)
+            self._resize_maps = {}        # input shape -> (mx, my)
+            settings.width = settings.new_width
+            settings.height = settings.new_height
+
+        # Stereo rectification at start-up (Settings::precomputeRectificationMaps,
+        # src/Settings.cc; applied per frame as System.cc:273-284 does): a
+        # distorted pinhole pair with a known extrinsic gets remap tables,
+        # and the whole pipeline runs in the rectified frame.
+        self._rect = None
+        if _needs_rectification(settings):
+            self._rect = compute_rectification(
+                settings.camera1, settings.dist1,
+                settings.camera2,
+                settings.dist2 if settings.dist2 is not None else np.zeros(4),
+                settings.T_c1_c2, settings.width, settings.height, device=self.device,
+            )
+            settings.camera1 = self._rect.camera
+            settings.bf = self._rect.bf
         self.atlas.add_camera(settings.camera1)
 
         orb = OrbConfig(
@@ -145,9 +195,27 @@ class System:
         if sensor is Sensor.IMU_STEREO:
             T_bc = settings.T_b_c1 if settings.T_b_c1 is not None else np.eye(4)
             T_bc = np.asarray(T_bc, np.float64)
+            if self._rect is not None:
+                # the body from the rectified camera: X_c1 = R1^T X_rect
+                # (ORB-SLAM3 composes it too, Settings.h:157; ROADMAP F10)
+                T_c1_rect = np.eye(4)
+                T_c1_rect[:3, :3] = self._rect.R1.T
+                T_bc = T_bc @ T_c1_rect
             self.imu_calib = imu_calib_from_numpy(
                 T_bc[:3, :3], T_bc[:3, 3], settings.imu_noise_gyro, settings.imu_noise_acc,
                 settings.imu_walk_gyro, settings.imu_walk_acc, settings.imu_frequency,
+                device=self.device,
+            )
+        # A KB8 fisheye pair with its extrinsic takes the fisheye route
+        # (Frame.cc:1115 fisheye ctor)
+        stereo_rig = None
+        if (
+            settings.camera_type in ("KannalaBrandt8", "Fisheye")
+            and settings.camera2 is not None
+            and settings.T_c1_c2 is not None
+        ):
+            stereo_rig = stereo_rig_from_numpy(
+                settings.camera1, settings.camera2, settings.T_c1_c2, settings.bf,
                 device=self.device,
             )
         self.local_mapper = LocalMapper(
@@ -165,6 +233,7 @@ class System:
             local_mapper=self.local_mapper,
             th_depth_factor=settings.th_depth,
             imu_calib=self.imu_calib,
+            stereo_rig=stereo_rig,
             device=self.device,
         )
         self.local_mapper.tracker = self.tracker
@@ -181,7 +250,26 @@ class System:
             raise RuntimeError("track_stereo called on non-stereo sensor config")
         if imu:
             self.tracker_grab_imu(imu)
+        if self._resize_to is not None:
+            t0 = time.perf_counter()
+            img_left = self._resize_input(img_left)
+            img_right = self._resize_input(img_right)
+            self.stats.record("input_resize", (time.perf_counter() - t0) * 1e3)
+        if self._rect is not None:
+            t0 = time.perf_counter()
+            img_left = remap_bilinear(np.asarray(img_left), self._rect.map_lx, self._rect.map_ly)
+            img_right = remap_bilinear(np.asarray(img_right), self._rect.map_rx, self._rect.map_ry)
+            self.stats.record("rectify_remap", (time.perf_counter() - t0) * 1e3)
         return self.tracker.track_stereo(img_left, img_right, timestamp)
+
+    def _resize_input(self, img):
+        """Bilinear resize to the configured working resolution (the tables
+        are made once per input shape)."""
+        img = np.asarray(img)
+        shape = img.shape[:2]
+        if shape not in self._resize_maps:
+            self._resize_maps[shape] = resize_maps(*shape, *self._resize_to)
+        return remap_bilinear(img, *self._resize_maps[shape])
 
     def track_rgbd(self, img, depth_map, timestamp: float, imu=None):
         raise RuntimeError("track_rgbd called on non-RGBD sensor config")

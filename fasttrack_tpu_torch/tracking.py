@@ -1,7 +1,7 @@
 """Tracking front-end: the per-frame state machine (src/Tracking.cc).
 
-Port of fasttrack_tpu/tracking.py for pinhole stereo, visual and
-stereo-inertial. Host-side
+Port of fasttrack_tpu/tracking.py for a rectified pinhole pair and a KB8
+fisheye pair, visual and stereo-inertial. Host-side
 orchestration of the device programs, mirroring the reference's Track()
 control flow (Tracking.cc:1851-2392):
 
@@ -43,8 +43,10 @@ motion-model matcher; pose_optimization=False bypasses pose optimization in
 TrackLocalMap (Tracking.cc:3080-3106, the FastTrack ablation mode). Any
 toggle that is off keeps every frame stepwise. Pose optimization itself and
 the reference-keyframe matcher run on the device under every mask, as in
-the JAX package. The monocular, RGB-D and fisheye front ends raise
-NotImplementedError with their ROADMAP item (M9).
+the JAX package. A KB8 pair with its rig (`stereo_rig`) takes the fisheye
+front end (frame_pipeline.process_fisheye_frame_stacked) before the
+toggles are read, as in the JAX package (ROADMAP F22). The monocular and
+RGB-D front ends raise NotImplementedError with their ROADMAP item (M9).
 """
 
 from __future__ import annotations
@@ -66,10 +68,11 @@ from fasttrack_tpu_torch.cameras.host import (
     project_np,
     unproject_np,
 )
-from fasttrack_tpu_torch.cameras.models import PINHOLE, Camera
+from fasttrack_tpu_torch.cameras.models import FISHEYE_KB8, Camera
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.frame_pipeline import (
     pack_frame_for_host,
+    process_fisheye_frame_stacked,
     process_stereo_frame_stacked,
 )
 from fasttrack_tpu_torch.fused_track import (
@@ -192,9 +195,9 @@ class Tracker:
     ):
         if monocular:
             raise NotImplementedError("monocular tracking is not ported yet (ROADMAP M9)")
-        if stereo_rig is not None or camera.kind != PINHOLE:
-            raise NotImplementedError("fisheye (KB8) stereo is not ported yet (ROADMAP M9)")
         self.device = resolve(device)
+        # a KB8 pair's rig (cameras.stereo.StereoRig): the fisheye route
+        self.stereo_rig = None if stereo_rig is None else stereo_rig.to(self.device)
         # --- inertial front-end state (Tracking.cc IMU members) ----------
         self.imu_calib = imu_calib            # imu.preintegration.ImuCalib
         self.use_imu = imu_calib is not None
@@ -295,6 +298,25 @@ class Tracker:
     # ------------------------------------------------------- main entry point
     def track_stereo(self, img_left, img_right, timestamp: float):
         t0 = time.perf_counter()
+        if self.stereo_rig is not None and self.camera.kind == FISHEYE_KB8:
+            # the fisheye stereo route (Frame.cc:1115 fisheye ctor), taken
+            # before the toggles are read, as in the JAX package (ROADMAP
+            # F22): one stacked uint8 upload, extraction and the K = 2
+            # match on the device under every mask
+            stacked = np.stack(
+                [np.asarray(img_left, np.uint8), np.asarray(img_right, np.uint8)]
+            )
+
+            def dispatch_fisheye():
+                return process_fisheye_frame_stacked(
+                    torch.from_numpy(stacked).to(self.device), self.cfg, self.stereo_rig
+                )
+
+            if self._fused_eligible():
+                out = self._track_fused(dispatch_fisheye, timestamp, t0)
+                if out is not NotImplemented:
+                    return out
+            return self._track_frame(dispatch_fisheye(), timestamp, t0)
         if not (self.kcfg.orb_extraction and self.kcfg.stereo_match):
             # At least one front-end stage runs on the host: the ablation
             # modes of the reference's toggle matrix (ORBextractor.cc:1374,
@@ -481,8 +503,10 @@ class Tracker:
     # -------------------------------------------------- fused one-sync path
     def _fused_eligible(self) -> bool:
         """The single-sync frame path (fused_track module) covers the normal
-        case: OK state, all five toggles on, local-map candidates cached
-        from the previous frame; visual frames need the constant-velocity
+        case: OK state, the toggles of the local-map search, pose estimation
+        and pose optimization on (the front end's two are on wherever this
+        is asked, but on the fisheye route, which ignores them: ROADMAP
+        F22), local-map candidates cached from the previous frame; visual frames need the constant-velocity
         model, inertial frames an initialized IMU with the frame-to-frame
         anchor ready (prior + last-frame velocity) and no map change since
         the last frame (after one the reference anchors on the last KEYFRAME,
@@ -493,7 +517,6 @@ class Tracker:
             and not self.localization_only
             and self._tlm_cand_ids is not None
             and len(self._tlm_cand_ids) > 0
-            and self.kcfg.orb_extraction and self.kcfg.stereo_match
             and self.kcfg.search_local_points and self.kcfg.pose_estimation
             and self.kcfg.pose_optimization
             and self.last_frame is not None

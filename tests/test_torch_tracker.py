@@ -50,6 +50,7 @@ from fasttrack_tpu.ops.extractor import OrbConfig as JaxOrbConfig
 from fasttrack_tpu.slam_map import Atlas as JaxAtlas
 from fasttrack_tpu_torch import tracking
 from fasttrack_tpu_torch.cameras import make_kannala_brandt8, make_pinhole
+from fasttrack_tpu_torch.cameras.stereo import stereo_rig_from_numpy
 from fasttrack_tpu_torch.datasets import synthetic
 from fasttrack_tpu_torch.evaluation import ate
 from fasttrack_tpu_torch.kernels import KernelConfig
@@ -557,7 +558,8 @@ CFG = OrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS)
 @pytest.mark.parametrize("kwargs, item", [
     (dict(imu_calib=object(), monocular=True), "M9"),     # monocular-inertial
     (dict(monocular=True), "M9"),
-    (dict(stereo_rig=object()), "M9"),
+    # a KB8 rig is ported (M9a); with a monocular tracker it still raises
+    (dict(stereo_rig=object(), monocular=True), "M9"),
 ])
 def test_left_out_constructor_arguments_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -565,9 +567,16 @@ def test_left_out_constructor_arguments_raise(kwargs, item):
 
 
 def test_kb8_camera_raises():
+    """Since M9a a KB8 camera builds: with its rig it takes the fisheye
+    route, without one the rectified route, as the JAX tracker does; what
+    still raises for it is the monocular tracker."""
     cam = make_kannala_brandt8(190.0, 190.0, 160.0, 120.0, 0, 0, 0, 0, W, H, device="cpu")
+    assert tracking.Tracker(cam, CFG, 28.0, Atlas(), device="cpu").stereo_rig is None
+    rig = stereo_rig_from_numpy(cam, cam, np.eye(4) + np.eye(4, k=3) * 0.1, 19.0, device="cpu")
+    tr = tracking.Tracker(cam, CFG, 19.0, Atlas(), stereo_rig=rig, device="cpu")
+    assert tr.stereo_rig.left.params.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="M9"):
-        tracking.Tracker(cam, CFG, 28.0, Atlas(), device="cpu")
+        tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu")
 
 
 @pytest.mark.parametrize("call, item", [
