@@ -89,6 +89,16 @@ class Rig(NamedTuple):
 
 
 FOV_FADE_DEG = 15.0
+# both rigs: camera 2 rotated about x from camera 1, the body rotated from
+# camera 1 about z (EuRoC's cam0 and TUM-VI's cam0 sit in their bodies
+# nearly so)
+TILT_X_DEG = 0.8
+BODY_YAW_DEG = 90.0
+# the KB8 rig's image circle, off the axis, by default: past ~75 deg the
+# plane is seen at grazing angles and its texture aliases to noise
+KB8_FOV_DEG = 75.0
+# fixed-point steps that invert the plumb-bob distortion per pixel
+RADTAN_INVERSE_ITERS = 50
 
 
 def _rot(axis: int, angle: float) -> np.ndarray:
@@ -107,24 +117,22 @@ def _extrinsic(baseline: float, tilt_x: float) -> np.ndarray:
     return T
 
 
-def euroc_radtan_rig(w: int = 752, h: int = 480, baseline: float = 0.11,
-                     tilt_x_deg: float = 0.8, body_yaw_deg: float = 90.0) -> Rig:
+def euroc_radtan_rig(w: int = 752, h: int = 480, tilt_x_deg: float = TILT_X_DEG) -> Rig:
     """A distorted pinhole pair with EuRoC cam0's intrinsics and radtan
-    coefficients (scaled to w x h from 752 x 480), camera 2 `baseline` m
-    along x and rotated `tilt_x_deg` about x, the body rotated from camera 1
-    by `body_yaw_deg` about z (EuRoC's cam0 sits in its body nearly so)."""
+    coefficients (scaled to w x h from 752 x 480), camera 2 0.11 m along x
+    and rotated `tilt_x_deg` about x, the body rotated from camera 1 by
+    BODY_YAW_DEG about z."""
     sx, sy = w / 752.0, h / 480.0
     p1 = np.array([458.654 * sx, 457.296 * sy, 367.215 * sx, 248.375 * sy])
     p2 = np.array([457.587 * sx, 456.134 * sy, 379.999 * sx, 255.238 * sy])
-    return Rig("radtan", p1, p2, _extrinsic(baseline, np.deg2rad(tilt_x_deg)),
-               _rot(2, np.deg2rad(body_yaw_deg)),
+    return Rig("radtan", p1, p2, _extrinsic(0.11, np.deg2rad(tilt_x_deg)),
+               _rot(2, np.deg2rad(BODY_YAW_DEG)),
                np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]),
                np.array([-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05]))
 
 
 def tumvi_kb8_rig(w: int = 512, h: int = 512, baseline: float = 0.101,
-                  tilt_x_deg: float = 0.8, body_yaw_deg: float = 90.0,
-                  fov_deg: float = 75.0) -> Rig:
+                  fov_deg: float = KB8_FOV_DEG) -> Rig:
     """A KB8 fisheye pair with TUM-VI's intrinsics and coefficients
     (512 x 512; scaled to w x h), posed as `euroc_radtan_rig`'s, its image
     circle `fov_deg` off the axis."""
@@ -137,11 +145,11 @@ def tumvi_kb8_rig(w: int = 512, h: int = 512, baseline: float = 0.101,
                    252.59949716835982 * sx, 254.91723064636983 * sy,
                    0.0034003170790442797, 0.001766278153469831,
                    -0.00266312569781606, 0.0003299517423931039])
-    return Rig("kb8", p1, p2, _extrinsic(baseline, np.deg2rad(tilt_x_deg)),
-               _rot(2, np.deg2rad(body_yaw_deg)), fov_deg=fov_deg)
+    return Rig("kb8", p1, p2, _extrinsic(baseline, np.deg2rad(TILT_X_DEG)),
+               _rot(2, np.deg2rad(BODY_YAW_DEG)), fov_deg=fov_deg)
 
 
-def pixel_rays(kind: str, params, dist, h: int, w: int, iters: int = 50) -> np.ndarray:
+def pixel_rays(kind: str, params, dist, h: int, w: int) -> np.ndarray:
     """(h, w, 3) rays with z == 1 through every pixel of a camera: "kb8" by
     the host unprojection, "radtan" by inverting the plumb-bob distortion
     per pixel (fixed-point steps; the distortion is monotonic over the
@@ -153,7 +161,7 @@ def pixel_rays(kind: str, params, dist, h: int, w: int, iters: int = 50) -> np.n
     xd = (xs - p[2]) / p[0]
     yd = (ys - p[3]) / p[1]
     x, y = xd.copy(), yd.copy()
-    for _ in range(iters):
+    for _ in range(RADTAN_INVERSE_ITERS):
         xt, yt = distort_pinhole(np.asarray(dist, np.float64), x, y)
         x += xd - xt
         y += yd - yt

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from fasttrack_tpu_torch.cameras.models import Camera
+from fasttrack_tpu_torch.cameras.models import FISHEYE_KB8, Camera
 from fasttrack_tpu_torch.geometry import SE3
 from fasttrack_tpu_torch.optim import ba_core
 from fasttrack_tpu_torch.optim.robust import CHI2_MONO, CHI2_STEREO, huber_weight
@@ -105,12 +105,15 @@ def local_bundle_adjustment(
         chi2_new, w_new = weights(r_new, inlier * (~behind_new), use_robust)
         c_old = torch.sum(chi2 * (w > 0))
         c_new = torch.sum(chi2_new * (w_new > 0))
-        # A step that moves a live observation behind its camera drops that
-        # observation from c_new; it is rejected, or a window of mono edges
-        # (a fisheye map's) can lower its cost by flipping its points behind
-        # the cameras. The JAX package accepts such a step (ROADMAP F24).
-        flipped = ((live > 0) & behind_new).any()
-        step_ok = torch.isfinite(dxc).all() & torch.isfinite(dxp).all() & ~flipped
+        step_ok = torch.isfinite(dxc).all() & torch.isfinite(dxp).all()
+        if cam.kind == FISHEYE_KB8:
+            # A step that moves a live observation behind its camera drops
+            # it from c_new, so a KB8 window (mono edges only: fisheye points
+            # keep u_right = -1) can lower its cost by flipping its points
+            # behind the cameras, and its map falls apart. Such a step is
+            # rejected there; a pinhole window keeps the JAX package's
+            # accept test (ROADMAP F24).
+            step_ok = step_ok & ~((live > 0) & behind_new).any()
         accept = (c_new < c_old) & step_ok
         poses = SE3(
             torch.where(accept, poses_new.R, poses.R),

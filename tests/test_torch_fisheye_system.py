@@ -3,23 +3,26 @@
 
 A KB8 stereo-inertial run up to IMU init (datasets.synthetic's TUM-VI-like
 pair at 320x320, 0.2 m apart, the plane 3 m away, 45 frames, the body 90
-deg about z from camera 1). Its map fell apart at one keyframe's local
-bundle adjustment until the port rejected a step that moves live
-observations behind their cameras, a step the JAX package's accept test
-keeps (fasttrack_tpu/optim/local_ba.py:117-121, ROADMAP F24), so the port
-is held to the truth instead: IMU init reached, |bg| < 0.05 rad/s, every
-frame but at most two OK and the last one OK, the ATE under 0.25 m (a KB8
-map's adjustment has no stereo edge, F24, and 320 px resolve 0.5 deg a
-pixel).
+deg about z from camera 1). The JAX package falls apart on it: its local
+BA's accept test (fasttrack_tpu/optim/local_ba.py:117-121) keeps a step
+that moves live observations behind their cameras, and from frame 20 on it
+is lost, with no IMU init (`rig_reading.fisheye_system_reading`, ROADMAP
+F24). The port rejects such a step in a KB8 window, so it is held to the
+truth instead: IMU init reached, |bg| < 0.05 rad/s, every frame but at most
+two OK and the last one OK, the frames before the init within 0.02 m, and
+the whole run under 0.25 m (it spans the init's change of world; the
+trajectory moves 0.38 m RMS).
 """
 
 import numpy as np
 
 from fasttrack_tpu_torch.cameras import make_kannala_brandt8
 from fasttrack_tpu_torch.datasets import synthetic
+from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
 from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.system import Sensor, System
 from tests.test_torch_system_inertial import ate_rmse, imu_between, one_torch_thread
+
 
 def test_a_kb8_stereo_inertial_run_reaches_imu_init():
     n = 45
@@ -46,4 +49,9 @@ def test_a_kb8_stereo_inertial_run_reaches_imu_init():
     assert system.atlas.current.imu_initialized
     assert states.count("OK") >= n - 2 and states[-1] == "OK", states
     assert np.linalg.norm(system.tracker.bias[0]) < 0.05
+    traj = system.tracker.trajectory
+    before = absolute_trajectory_error(np.asarray([t for t, _, _ in traj[:40]]),
+                                       np.asarray([-R.T @ t for _, R, t in traj[:40]]),
+                                       seq.gt_t, seq.gt_pos)
+    assert before["n"] == 40 and before["rmse"] < 0.02
     assert ate_rmse(seq, system) < 0.25

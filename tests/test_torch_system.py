@@ -247,41 +247,43 @@ LEFT_OUT = {
     "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9"),
     "MONOCULAR": (dict(), dict(sensor=Sensor.MONOCULAR), "M9"),
     "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9"),
-    "input resize": (dict(new_width=160, new_height=120), dict(), "M9"),
-    "rectification": (dict(
-        camera2=make_pinhole(256.0, 256.0, 160.0, 120.0, W, H, device="cpu"),
-        T_c1_c2=np.eye(4) + np.eye(4, k=3) * 0.1, dist1=np.array([-0.28, 0.07, 0.0, 0.0])),
-        dict(), "M9"),
-    "fisheye": (dict(camera_type="KannalaBrandt8", camera1=make_kannala_brandt8(
-        190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, device="cpu"), camera2=make_kannala_brandt8(
-        190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, device="cpu"), T_c1_c2=np.eye(4) + np.eye(4, k=3) * 0.1),
-        dict(), "M9"),
     "load_atlas": (dict(load_atlas="a.osa"), dict(), "M9"),
     "save_atlas": (dict(save_atlas="a.osa"), dict(), "M9"),
 }
 
 
-# the branches M9a ported: each now builds and takes its route
-PORTED_IN_M9A = {
-    "input resize": lambda s: s.tracker.cfg.width == 160 and s._resize_to == (120, 160),
-    "rectification": lambda s: s._rect is not None and s.tracker.stereo_rig is None,
-    "fisheye": lambda s: s.tracker.stereo_rig is not None and s._rect is None,
-}
-
-
 @pytest.mark.parametrize("name", sorted(LEFT_OUT))
 def test_left_out_branch_raises_with_its_item(name):
-    """A branch that is not ported raises with its ROADMAP item; the three
-    that M9a ported (input resize, rectification, a fisheye rig) build and
-    take their route instead."""
     settings_kw, system_kw, item = LEFT_OUT[name]
     kw = dict(sensor=Sensor.STEREO, vocabulary=False, device="cpu")
     kw.update(system_kw)
-    if name in PORTED_IN_M9A:
-        assert PORTED_IN_M9A[name](System(_settings(**settings_kw), **kw))
-        return
     with pytest.raises(NotImplementedError, match=item):
         System(_settings(**settings_kw), **kw)
+
+
+# the start-up camera transforms and the fisheye rig (M9a): each builds and
+# takes its route
+M9A_BRANCHES = {
+    "input resize": (dict(new_width=160, new_height=120),
+                     lambda s: s.tracker.cfg.width == 160 and s._resize_to == (120, 160)),
+    "rectification": (dict(
+        camera2=make_pinhole(256.0, 256.0, 160.0, 120.0, W, H, device="cpu"),
+        T_c1_c2=np.eye(4) + np.eye(4, k=3) * 0.1, dist1=np.array([-0.28, 0.07, 0.0, 0.0])),
+        lambda s: s._rect is not None and s.tracker.stereo_rig is None),
+    "fisheye": (dict(camera_type="KannalaBrandt8", camera1=make_kannala_brandt8(
+        190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, device="cpu"), camera2=make_kannala_brandt8(
+        190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, device="cpu"),
+        T_c1_c2=np.eye(4) + np.eye(4, k=3) * 0.1),
+        lambda s: s.tracker.stereo_rig is not None and s._rect is None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(M9A_BRANCHES))
+def test_m9a_branches_build(name):
+    settings_kw, took_its_route = M9A_BRANCHES[name]
+    system = System(_settings(**settings_kw), sensor=Sensor.STEREO, vocabulary=False,
+                    device="cpu")
+    assert took_its_route(system)
 
 
 # place recognition in every configuration: with the mapping thread the loop
