@@ -182,7 +182,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
    each, every frame OK, IMU init, |bg|, the ATE (<= 0.02 m, and up to the
    init); (b) the
    visual System's first 6 frames on the card against System(device="cpu"):
-   states, paths, keyframes, poses within 1e-3.
+   states, paths, keyframes, poses within 1e-3; 23a also prints how many
+   local-BA steps the KB8 window's behind-the-camera rule rejected
+   (ROADMAP F24);
+24. the visual monocular System (M9b): (a) System(Sensor.MONOCULAR) in its
+   default configuration (the shipped vocabulary, the loop closer inline
+   with a free scale) over the first 60 frames of phase 10's sequence:
+   two-view initialization, the fused frames (1 fetch each), the mapper's
+   epipolar triangulation as the only source of points; per-frame states,
+   the init frame, OK frames, keyframes, map points, the Sim(3)-aligned
+   ATE beside the RMS motion, ms/frame of fused, stepwise and keyframe
+   frames, the two-view attempts' ms and both kernels' launches by stage,
+   gated against the JAX package's paired reading of the same frames
+   (ROADMAP F31: both degrade at this width); (b) reconstruct_two_view on
+   24a's init correspondences on the card and on the CPU (the same model
+   and success, R 1e-3 rad, good_mask 99%; its ms and device kernels a
+   call, ROADMAP K17), and the System's first 8 frames on both (the same
+   states, camera centres within 1e-3 of the map's unit median depth).
 
 Phase 3 also times torch._int_mm of the +-1 descriptors at the matrix
 kernel's four shapes: the int8 product the kernel computes in its body
@@ -196,8 +212,8 @@ same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
 
 The line before the last two is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Each kernel's `launches` is what the
-nineteen paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a, 20b,
-21a, 21b, 22a, 22b, 23a and 23b's card run) launched, counted from 0 at each path's start (phase 19b launches
+twenty-one paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
+20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a and 24b's card run) launched, counted from 0 at each path's start (phase 19b launches
 neither); `launches_relocalization` and `launches_loop_closing` are the
 part of phases 17-18 that relocalization and the loop closer made, and
 `launches_merge` the part of phases 20a and 20b that `_merge_maps` made
@@ -391,6 +407,25 @@ KB8_PLANE_Z = 3.0
 KB8_FOV_DEG = 50.0
 N_FISHEYE_CPU_FRAMES = 6        # phase 23b
 MIN_FISHEYE_DEPTHS = 100        # Tracking::StereoInitialization's threshold
+# Phase 24: the visual monocular System (M9b) over the first N_MONO_FRAMES
+# frames of phase 10's sequence (already rendered), the shipped vocabulary,
+# inline. At this width both packages' monocular Systems degrade on the
+# rendered sweep (ROADMAP F31), so phase 24a's gates are relative to the JAX
+# package's reading of the same frames on the card's host CPU
+# (rig_reading.mono_reading("jax"), PERF.md §6): its initialization frame
+# (the port's within one frame of it), its OK frames (the port's no more than
+# 3 fewer), its first loss after the init (None: none) and its Sim(3)-aligned
+# ATE over the frames before that loss (the port's over the same frames no
+# more than twice it). Phase 24b holds the card to the CPU instead. The
+# reading (an NVIDIA H100 machine's host CPU): the JAX package initializes at frame 2,
+# is OK on 48 frames, loses track at frame 50 (its 909 map points went to 0
+# at frame 49's keyframe) and reads 0.0258 m over frames 2-49 (Sim(3), scale
+# 1.29); the port on the CPU: frame 2, all 58 after it OK, 0.0403 m over
+# them (its monocular windows reject flipped steps, ROADMAP F24).
+N_MONO_FRAMES = 60
+N_MONO_CPU_FRAMES = 8           # phase 24b: of phase 24a's frames
+MONO_JAX = {"init_frame": 2, "frames_ok": 48, "first_loss": 50, "ate_m": 0.02579}
+MONO_INIT_SLACK, MONO_OK_SLACK, MONO_ATE_FACTOR = 1, 3, 2.0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -915,12 +950,14 @@ def phase_fused_card_vs_cpu(kept):
     print(f"phase 7 fused step card against CPU: {json.dumps(report)}")
 
 
-def tracker_step(tracker, frame, entry=None, imu=None) -> dict:
+def tracker_step(tracker, frame, entry=None, imu=None, mono=False) -> dict:
     """One frame of the rendered sequence through `track_stereo` of `entry`
     (a System; by default the tracker itself), with the IMU samples `imu`
-    if given, timed on the host's clock (the call ends after its last
-    fetch), and what the checks read. A frame went stepwise if it recorded
-    `orb_extraction` (the fused path records it only when it falls back)."""
+    if given, or its left image through `track_monocular` if `mono`, timed
+    on the host's clock (the call ends after its last fetch), and what the
+    checks read. A frame went stepwise if it recorded `orb_extraction` (the
+    fused path records it only when it falls back). A frame with no pose
+    yet (a monocular tracker before its initialization) has R and t None."""
     series = tracker.stats.series
     counts = {k: len(series[k]) for k in ("orb_extraction", "device_fetches", "store_uploads")}
     kern = hamming_kernel.hamming_penalty_topk
@@ -928,7 +965,9 @@ def tracker_step(tracker, frame, entry=None, imu=None) -> dict:
     if tracker.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if imu is None:
+    if mono:
+        entry.track_monocular(frame.left, frame.timestamp)
+    elif imu is None:
         (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
     else:
         entry.track_stereo(frame.left, frame.right, frame.timestamp, imu=imu)
@@ -943,7 +982,9 @@ def tracker_step(tracker, frame, entry=None, imu=None) -> dict:
         "keyframes": m.n_keyframes(), "mappoints": m.n_mappoints(),
         "bound": int((last.mp_ids >= 0).sum()), "inliers": tracker.n_inliers,
         "stereo": int((last.valid & (last.depth > 0)).sum()),
-        "mp_ids": last.mp_ids.copy(), "R": last.R_cw.copy(), "t": last.t_cw.copy(),
+        "mp_ids": last.mp_ids.copy(),
+        "R": None if last.R_cw is None else last.R_cw.copy(),
+        "t": None if last.t_cw is None else last.t_cw.copy(),
     }
 
 
@@ -1114,8 +1155,8 @@ def watch_bundle_adjustment(adjustments):
     returns (one fetch more per adjustment, inside its timed step)."""
     inner = local_mapping.local_bundle_adjustment
 
-    def solve(prob, cam, bf):
-        res = inner(prob, cam, bf)
+    def solve(prob, cam, bf, **kw):
+        res = inner(prob, cam, bf, **kw)
 
         def cost(poses, points):
             r, _ = ba_core.residuals(poses, points, cam, bf, prob.obs_uv, prob.obs_ur)
@@ -2724,7 +2765,9 @@ def phase_fisheye_inertial(device, seq, rig, card):
         f"stepwise; keyframes processed {int(sum(system.stats.series['lm_keyframes']))}; "
         f"ATE RMSE {ate['rmse']:.4f} m (limit {ATE_LIMIT_M}; the trajectory moves "
         f"{ate['rms_motion']:.4f} m RMS; up to init {ate['rmse_before_init']:.4f}, after it "
-        f"{ate['rmse_after_init']:.4f}); ms/frame "
+        f"{ate['rmse_after_init']:.4f}) with {int(sum(system.stats.series['lm_ba_steps_rejected']))} "
+        f"local-BA steps rejected behind the cameras (ROADMAP F24) in "
+        f"{int(sum(system.stats.series['lm_local_bas']))} visual local BAs; ms/frame "
         f"median, p90 (count): "
         + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
         + f"; keyframes {system.atlas.current.n_keyframes()}, map points "
@@ -2764,6 +2807,220 @@ def phase_fisheye_card_vs_cpu(device, seq, rig, card):
     worst["paths"] = [r["path"] for r in logs[0]]
     print(f"phase 23b KB8 fisheye pair, the visual System card against CPU ({card}): "
           f"{json.dumps(worst)}")
+    return launches
+
+
+def mono_settings(seq, device) -> Settings:
+    """A user's monocular settings for phase 10's rendered camera: 8 levels,
+    1024 features, no stereo baseline."""
+    return Settings(camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device),
+                    bf=0.0, width=W, height=H, n_features=CFG.n_features,
+                    n_levels=CFG.n_levels, scale_factor=CFG.scale_factor)
+
+
+INIT_STAGE = ("init", tracking, "search_by_projection")   # the initializer's level-0 search
+
+
+def run_mono(system, seq, n, keyframes=None, stages=None):
+    """The first `n` frames of `seq` through `system.track_monocular`, one
+    tracker_step row each, with the keyframes the frame handed to the
+    mapper (watch_mapper's rows) and its stage launches when given."""
+    log = []
+    for f in seq.frames[:n]:
+        before = stage_snapshot(stages) if stages is not None else None
+        n_kf = len(keyframes) if keyframes is not None else 0
+        r = tracker_step(system.tracker, f, entry=system, mono=True)
+        r["mapped"] = keyframes[n_kf:] if keyframes is not None else []
+        if stages is not None:
+            r["stages"] = stage_delta(stage_snapshot(stages), before)
+        log.append(r)
+    return log
+
+
+def sim3_ate(trajectory, seq):
+    if len(trajectory) < 3:
+        return None
+    return absolute_trajectory_error(
+        np.asarray([t for t, _, _ in trajectory]),
+        np.asarray([-R.T @ t_ for _, R, t_ in trajectory]),
+        seq.gt_t, seq.gt_pos, with_scale=True)
+
+
+def phase_mono_system(device, seq, card):
+    """The visual monocular System (M9b) in its default configuration on the
+    card: two-view initialization, the fused frames, the mapper's epipolar
+    triangulation as the only source of points, the loop closer with a free
+    scale; the gates from the JAX package's reading (MONO_JAX)."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = System(mono_settings(seq, device), Sensor.MONOCULAR, device=device)
+    check(system.tracker.monocular and system.loop_closer.fix_scale is False,
+          "phase 24a: not a monocular System with a free-scale loop closer")
+    keyframes, lc_rows, attempts = [], [], []
+    watch_mapper(system, keyframes)
+    watch_loop_closer(system.loop_closer, lc_rows)
+    inner_tv = tracking.reconstruct_two_view
+
+    def two_view(p1, p2, K, **kw):
+        topk, mat = kern.launches, matrix.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner_tv(p1, p2, K, **kw)
+        torch.cuda.synchronize()
+        attempts.append({"ms": (time.perf_counter() - t0) * 1e3, "success": res.success,
+                         "homography": res.used_homography, "matches": len(p1),
+                         "inliers": res.n_inliers, "scores": res.scores,
+                         "good": int(res.good_mask.sum()), "parallax_deg": res.parallax_deg,
+                         "launches": kern.launches - topk + matrix.launches - mat,
+                         "inputs": (p1, p2, K)})
+        return res
+
+    tracking.reconstruct_two_view = two_view
+    stages, restore = watch_tracker_stages(TRACKER_STAGES + (INIT_STAGE,))
+    try:
+        log = run_mono(system, seq, N_MONO_FRAMES, keyframes, stages)
+    finally:
+        restore()
+        tracking.reconstruct_two_view = inner_tv
+    system.shutdown()
+
+    states = [r["state"] for r in log]
+    check("OK" in states, f"phase 24a: never initialized: {''.join(s[0] for s in states)}")
+    init = states.index("OK")
+    loss = next((i for i in range(init, len(states)) if states[i] != "OK"), None)
+    n_ok = states.count("OK")
+    for i, r in enumerate(log):
+        if r["R"] is not None:
+            check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"phase 24a frame {i}: pose")
+        if r["path"] == "fused":
+            check(r["fetches"] == 1, f"phase 24a frame {i}: {r['fetches']} tracker fetches, fused")
+    check(attempts and attempts[-1]["success"], "phase 24a: no successful two-view attempt")
+    traj = system.tracker.trajectory
+    ate = sim3_ate(traj, seq)
+    jax_loss = MONO_JAX["first_loss"]
+    t_cut = seq.frames[jax_loss].timestamp if jax_loss is not None else np.inf
+    ate_cut = sim3_ate([e for e in traj if e[0] < t_cut], seq)
+    check(abs(init - MONO_JAX["init_frame"]) <= MONO_INIT_SLACK,
+          f"phase 24a: initialized at frame {init}, the JAX package at {MONO_JAX['init_frame']}")
+    check(n_ok >= MONO_JAX["frames_ok"] - MONO_OK_SLACK,
+          f"phase 24a: {n_ok} OK frames, the JAX package {MONO_JAX['frames_ok']}")
+    ate_limit = MONO_ATE_FACTOR * MONO_JAX["ate_m"]
+    check(ate_cut is not None and ate_cut["rmse"] <= ate_limit,
+          f"phase 24a: Sim(3) ATE up to the JAX package's first loss "
+          f"{None if ate_cut is None else round(ate_cut['rmse'], 4)} m, limit {ate_limit:.4f} m")
+    check(kern.launches > 0 and matrix.launches > 0, "phase 24a: a kernel was not launched")
+
+    def ms(rows):
+        v = [r["ms"] for r in rows]
+        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
+
+    after = log[init + 1:]
+    times = {"fused": ms([r for r in after if r["path"] == "fused" and not r["mapped"]]),
+             "stepwise": ms([r for r in after if r["path"] == "stepwise" and not r["mapped"]]),
+             "keyframe": ms([r for r in after if r["mapped"]])}
+    fused = [r for r in log if r["path"] == "fused"]
+    # [top-k, matrix] launches of each tracker stage
+    by_stage = {name: [sum(r["stages"][name][j] for r in log) for j in (0, 1)] for name in stages}
+    mapper = {"triangulation (10240 rows)": sum(k["topk_epi_rows"] for k in keyframes),
+              "mapper top-k all": sum(k["topk"] for k in keyframes),
+              "fusion (matrix)": sum(k["matrix"] for k in keyframes)}
+    closer = {k: sum(r[k] for r in lc_rows) for k in ("k1", "k2", "matrix")}
+    gt = np.asarray(seq.gt_pos[:len(log)])
+    rms_motion = float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean()))
+    ok_attempt = attempts[-1]
+    series = system.stats.series
+    print(
+        f"phase 24a monocular System, default configuration: {len(log)} frames of phase 10's "
+        f"{W}x{H} sequence through System(Sensor.MONOCULAR).track_monocular on {card}: states "
+        f"{''.join(s[0] for s in states)}; initialized at frame {init} (the JAX package "
+        f"{MONO_JAX['init_frame']}), {n_ok - 1} OK frames after it ({n_ok} OK in all; the JAX "
+        f"package {MONO_JAX['frames_ok']}), first loss after the init {loss}; two-view attempts "
+        f"{len(attempts)}, the successful one "
+        f"{'H' if ok_attempt['homography'] else 'F'} from {ok_attempt['matches']} matches "
+        f"(SH {ok_attempt['scores'][0]:.1f}, SF {ok_attempt['scores'][1]:.1f}; "
+        f"{ok_attempt['inliers']} inliers), {ok_attempt['good']} points, parallax "
+        f"{ok_attempt['parallax_deg']:.3f} deg, "
+        f"{ok_attempt['ms']:.1f} ms (all attempts: median "
+        f"{np.median([a['ms'] for a in attempts]):.1f} ms; Hamming launches in them "
+        f"{sum(a['launches'] for a in attempts)}); the init frame {log[init]['ms']:.1f} ms; "
+        f"keyframes {system.atlas.current.n_keyframes()} ({len(keyframes)} processed), map points "
+        f"{system.atlas.current.n_mappoints()}, points triangulated "
+        f"{int(sum(series['lm_points_triangulated']))}, local BAs {int(sum(series['lm_local_bas']))} "
+        f"with {int(sum(series['lm_ba_steps_rejected']))} steps rejected behind the cameras; "
+        f"Sim(3) ATE RMSE {ate['rmse']:.4f} m at scale {ate['scale']:.4f} over {ate['n']} frames, "
+        f"up to the JAX package's first loss {ate_cut['rmse']:.4f} m over {ate_cut['n']} (limit "
+        f"{ate_limit:.4f}), the trajectory moves {rms_motion:.4f} m RMS; ms/frame median, p90 "
+        f"(count) after the init: "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; {len(fused)} fused frames, 1 fetch each; top-k launches {kern.launches} "
+        f"({dict(kern.launches_by_k)} by K), by stage: tracker {by_stage}, mapper {mapper}, loop "
+        f"closer {closer} over {len(lc_rows)} keyframes ({sum(r['closed'] for r in lc_rows)} "
+        f"loops); matrix launches {matrix.launches}"
+    )
+    return kern.launches, matrix.launches, ok_attempt["inputs"]
+
+
+def phase_mono_card_vs_cpu(device, seq, card, init_inputs):
+    """(a) reconstruct_two_view on phase 24a's initialization
+    correspondences, on the card and on the CPU: the same model and
+    success, R within 1e-3 rad, good_mask on >= 99% of the points; its ms
+    and its kernel launches on the card (ROADMAP K17); (b) the first
+    N_MONO_CPU_FRAMES frames through the monocular System on the card and
+    on the CPU: the same state on every frame, camera centres within 1e-3
+    (the map's scale: its median depth at the init is 1, in both)."""
+    from fasttrack_tpu_torch.optim.two_view import reconstruct_two_view
+
+    p1, p2, K = init_inputs
+    card_res = reconstruct_two_view(p1, p2, K, device=device)
+    cpu_res = reconstruct_two_view(p1, p2, K, device="cpu")
+    dR = float(np.arccos(np.clip((np.trace(card_res.R.T @ cpu_res.R) - 1) / 2, -1, 1)))
+    agree = float(np.mean(card_res.good_mask == cpu_res.good_mask))
+    check((card_res.success, card_res.used_homography) == (cpu_res.success,
+                                                            cpu_res.used_homography)
+          and dR < 1e-3 and agree >= 0.99,
+          f"phase 24b two-view: card {card_res.success}/{card_res.used_homography}, CPU "
+          f"{cpu_res.success}/{cpu_res.used_homography}, R {dR:.2e} rad, good_mask {agree:.4f}")
+    host_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reconstruct_two_view(p1, p2, K, device=device)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reconstruct_two_view(p1, p2, K, device=device)
+        torch.cuda.synchronize()
+    k17_launches = len(device_kernels(prof)) or None      # None: the tracer delivered nothing
+    k17_busy = sum(k.time_range.elapsed_us() for k in device_kernels(prof)) / 1e3
+
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    logs = []
+    for dev in (device, "cpu"):
+        system = System(mono_settings(seq, dev), Sensor.MONOCULAR, device=dev)
+        logs.append(run_mono(system, seq, N_MONO_CPU_FRAMES))
+        system.shutdown()
+        if dev == device:
+            launches = (kern.launches, matrix.launches)
+    worst = 0.0
+    for i, (gpu, cpu) in enumerate(zip(*logs)):
+        check(gpu["state"] == cpu["state"] and (gpu["R"] is None) == (cpu["R"] is None),
+              f"phase 24b frame {i}: card {gpu['state']}, CPU {cpu['state']}")
+        if gpu["R"] is not None:
+            d = float(np.linalg.norm(-gpu["R"].T @ gpu["t"] + cpu["R"].T @ cpu["t"]))
+            check(d < 1e-3, f"phase 24b frame {i}: camera centres {d:.2e} apart")
+            worst = max(worst, d)
+    print(
+        f"phase 24b monocular, card against CPU ({card}): two-view on phase 24a's "
+        f"{len(p1)} init correspondences: {'H' if card_res.used_homography else 'F'} on both, "
+        f"success {card_res.success}, R {dR:.2e} rad apart, good_mask agrees on "
+        f"{100 * agree:.2f}%; on the card {host_ms[0]:.1f} ms the first call, then median "
+        f"{np.median(host_ms[1:]):.1f} ms (host clock, synchronised; ROADMAP K17), "
+        f"{k17_launches} device kernels a call, {k17_busy:.3f} ms of them busy (torch.profiler); "
+        f"the System's first {N_MONO_CPU_FRAMES} frames: states "
+        f"{''.join(r['state'][0] for r in logs[0])} on both, camera centres at most {worst:.2e} "
+        f"apart; top-k launches {launches[0]}, matrix launches {launches[1]} (the card's run)"
+    )
     return launches
 
 
@@ -2905,6 +3162,11 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     fish_cpu_launches, fish_cpu_matrix = phase_fisheye_card_vs_cpu(device, seq_f, kb8_rig, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 23")
 
+    # 24. the visual monocular System (a: default configuration; b: card against CPU)
+    mono_launches, mono_matrix, init_inputs = phase_mono_system(device, seq, card)
+    mono_cpu_launches, mono_cpu_matrix = phase_mono_card_vs_cpu(device, seq, card, init_inputs)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 24")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -2920,7 +3182,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + inertial_launches + toggle_launches + host_i_launches + reloc_all
             + map_launches["topk"] + loop_all + inertial_loop["topk"] + merge_all["topk"]
             + merge_sys_all + threads_lc["topk"] + async_i_launches + rect_launches
-            + resize_launches + fish_launches + fish_cpu_launches,
+            + resize_launches + fish_launches + fish_cpu_launches + mono_launches
+            + mono_cpu_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -2950,6 +3213,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             "launches_resized": resize_launches,
             "launches_fisheye_inertial": fish_launches,
             "launches_fisheye_visual": fish_cpu_launches,
+            # phase 24: the monocular System (a), its first frames on the card (b)
+            "launches_monocular": mono_launches,
+            "launches_monocular_card_vs_cpu": mono_cpu_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -2992,7 +3258,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + inertial_matrix + toggle_matrix + host_i_matrix + reloc_matrix
             + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
             + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix
-            + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix,
+            + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix + mono_matrix
+            + mono_cpu_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -3016,6 +3283,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             "launches_resized": resize_matrix,
             "launches_fisheye_inertial": fish_matrix,
             "launches_fisheye_visual": fish_cpu_matrix,
+            "launches_monocular": mono_matrix,
+            "launches_monocular_card_vs_cpu": mono_cpu_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -3043,7 +3312,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     check(rect_launches > 0 and rect_matrix > 0 and resize_launches > 0 and fish_launches > 0
           and fish_k2 > 0 and fish_matrix > 0 and fish_cpu_launches > 0,
           "a kernel was not launched on the paths of phases 22-23")
-    print(f"chip_smoke: all 23 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(mono_launches > 0 and mono_matrix > 0 and mono_cpu_launches > 0,
+          "a kernel was not launched on the paths of phase 24")
+    print(f"chip_smoke: all 24 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

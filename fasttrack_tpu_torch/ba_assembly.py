@@ -177,15 +177,18 @@ def write_back(m, meta: WindowMeta, res, drop_outliers: bool = True):
 def solve_window(
     m, local_ids, fixed_ids, camera, bf, inv_sigma2,
     max_kfs: int, max_points: int, mp_ids=None, drop_outliers=True, device=None,
+    mono_edges_only: bool = False,
 ):
     """assemble -> solve -> write back. Returns (n_dropped_points).
-    `camera` lives on the device the window is solved on."""
+    `camera` lives on the device the window is solved on;
+    `mono_edges_only` as local_bundle_adjustment takes it."""
     device = resolve(device)
     prob, meta, n_dropped = assemble_window(
         m, local_ids, fixed_ids, inv_sigma2, max_kfs, max_points, mp_ids, device=device
     )
     res = local_bundle_adjustment(
-        prob, camera, convert.tensor_from_numpy(bf, np.float32, device)
+        prob, camera, convert.tensor_from_numpy(bf, np.float32, device),
+        mono_edges_only=mono_edges_only,
     )
     write_back(m, meta, res, drop_outliers)
     return n_dropped
@@ -195,7 +198,7 @@ def global_bundle_adjustment(
     m, camera, bf, inv_sigma2,
     max_kfs: int = 16, max_points: int = 2048,
     n_sweeps: int = 2, fixed_kf_ids: set | None = None,
-    should_abort=None, lock=None, device=None,
+    should_abort=None, lock=None, device=None, mono_edges_only: bool = False,
 ):
     """Whole-map BA (Optimizer::GlobalBundleAdjustemnt, Optimizer.cc:52;
     driven from RunGlobalBundleAdjustment, LoopClosing.cc:2268-2512).
@@ -257,7 +260,7 @@ def global_bundle_adjustment(
                     solve_window(
                         m, local, frontier[: max_kfs - len(local)], camera, bf,
                         inv_sigma2, max_kfs, max_points, drop_outliers=False,
-                        device=device,
+                        device=device, mono_edges_only=mono_edges_only,
                     )
                     n_blocks += 1
             i += block

@@ -197,11 +197,16 @@ def ba_problem_from_numpy(arrays: dict, device=None, dtype=np.float32) -> BAProb
 
 def ba_result_to_numpy(res: BAResult) -> dict:
     """A solved window on the host, in ONE synchronising fetch: "R", "t",
-    "points", "inlier_mask", "chi2" as NumPy arrays."""
-    R, t, points, inlier, chi2 = device_fetch(
-        res.poses.R, res.poses.t, res.points, res.inlier_mask, res.chi2
-    )
-    return {"R": R, "t": t, "points": points, "inlier_mask": inlier, "chi2": chi2}
+    "points", "inlier_mask", "chi2" as NumPy arrays, and "n_rejected" (an
+    int) when the result counted its rejected steps."""
+    parts = [res.poses.R, res.poses.t, res.points, res.inlier_mask, res.chi2]
+    if res.n_rejected is not None:
+        parts.append(res.n_rejected.reshape(1))
+    R, t, points, inlier, chi2, *rej = device_fetch(*parts)
+    out = {"R": R, "t": t, "points": points, "inlier_mask": inlier, "chi2": chi2}
+    if rej:
+        out["n_rejected"] = int(rej[0][0])
+    return out
 
 
 # ------------------------------------------------------------------ inertial

@@ -1,8 +1,9 @@
 """The per-frame tracking front end: images -> device-resident FrameData.
 
-Port of fasttrack_tpu/frame_pipeline.py (rectified and fisheye stereo): ORB
-extraction for both cameras, rectified stereo matching or the fisheye
-pair's brute-force match and triangulation, search-by-projection against
+Port of fasttrack_tpu/frame_pipeline.py (monocular, rectified and fisheye
+stereo): ORB extraction for one camera or both, rectified stereo matching
+or the fisheye pair's brute-force match and triangulation,
+search-by-projection against
 a local map and motion-only pose optimization. All
 intermediates stay on the images' device and nothing in the chain reads a
 value back to the host; `pack_hot_path_for_host` gathers what the tracker
@@ -21,6 +22,7 @@ from fasttrack_tpu_torch.geometry import SE3
 from fasttrack_tpu_torch.ops.extractor import (
     Keypoints,
     OrbConfig,
+    extract_orb,
     extract_orb_pair_stacked,
     level_tables,
     scale_factors,
@@ -31,7 +33,7 @@ from fasttrack_tpu_torch.optim.pose_opt import PoseOptResult, pose_optimize
 
 
 class FrameData(NamedTuple):
-    """Device-resident tensors for one stereo frame."""
+    """Device-resident tensors for one stereo (or mono) frame."""
 
     kps: Keypoints            # left-camera keypoints
     kps_right: Keypoints | None
@@ -64,6 +66,15 @@ def _search_optimize_stage(
     inv_sigma2 = 1.0 / scale_factors(config, kl.x.device)[kl.level[res.idx]] ** 2
     opt = pose_optimize(cam, bf, T0, map_pos, obs_uv, u_right[res.idx], inv_sigma2, res.ok)
     return res, opt
+
+
+def process_mono_frame(image: torch.Tensor, config: OrbConfig) -> FrameData:
+    """Monocular frame (Frame.cc monocular ctor): extraction only, on the
+    image's device (uint8 ok, cast there); no keypoint has a stereo
+    coordinate or a depth (both -1). Nothing here reads a value back."""
+    kps, _ = extract_orb(image, config)
+    neg = torch.full_like(kps.x, -1.0)
+    return FrameData(kps, None, neg, neg, kps.valid.sum())
 
 
 def process_stereo_frame_stacked(

@@ -30,9 +30,13 @@ With a `loop_closer` (loop_closing.LoopCloser) the mapper hands it every
 keyframe it has processed, as the JAX package does: inline, or with
 `run_async=True` from the mapping thread into the closer's queue. The
 closer's post-loop global BA of an IMU-initialized map is this mapper's
-`full_inertial_ba_converged`. Left out, each raising NotImplementedError
-with its ROADMAP item: `monocular` with its scale refinement (M9), `mesh`
-(M10).
+`full_inertial_ba_converged`.
+
+A visual monocular map (`monocular=True`) runs the same steps: its only
+new points are the epipolar triangulation's, since its keyframes carry no
+depth, and its adjustments have mono edges only. Left out, each raising
+NotImplementedError with its ROADMAP item: a monocular map with an IMU,
+with its scale refinement (M9c), and `mesh` (M10).
 """
 
 from __future__ import annotations
@@ -117,8 +121,10 @@ class LocalMapper:
                  imu_calib=None, tracker=None, monocular: bool = False,
                  mesh=None, stats: Stats | None = None,
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
-        if monocular:
-            raise NotImplementedError("monocular mapping is not ported yet (ROADMAP M9)")
+        if monocular and imu_calib is not None:
+            raise NotImplementedError(
+                "monocular-inertial mapping is not ported yet (ROADMAP M9c)"
+            )
         if mesh is not None:
             raise NotImplementedError(
                 "bundle adjustment sharded over a device mesh is not ported yet (ROADMAP M10)"
@@ -141,7 +147,7 @@ class LocalMapper:
             self._Rbc_dev = imu_calib.R_bc.to(self.device)
             self._tbc_dev = imu_calib.t_bc.to(self.device)
         self.tracker = tracker
-        self.monocular = False
+        self.monocular = monocular
         self.stats = stats or Stats()
         self.recent_mp_ids: list[tuple[int, int]] = []  # (mp_id, first_kf)
         self.run_async = run_async
@@ -281,7 +287,7 @@ class LocalMapper:
         """Epipolar triangulation of unmatched features with covisible
         keyframes (LocalMapping::CreateNewMapPoints, LocalMapping.cc:388).
         The stereo tracker also creates points from depth; this adds the
-        far points.
+        far points and is the ONLY source of points in a monocular map.
 
         ALL neighbor pairs run as ONE batched device pass
         (ops.project_match.epipolar_match_tri_batch): match + triangulate
@@ -535,8 +541,11 @@ class LocalMapper:
             m, local_ids, fixed_ids,
             self.inv_sigma2, BA_MAX_KFS, BA_MAX_POINTS, mp_ids, device=self.device,
         )
-        res = local_bundle_adjustment(prob, self.camera, self._bf_dev)
+        res = convert.ba_result_to_numpy(local_bundle_adjustment(
+            prob, self.camera, self._bf_dev, mono_edges_only=self.monocular))
         write_back(m, meta, res)
+        # steps rejected under the behind-the-camera rule (ROADMAP F24)
+        self.stats.record_count("lm_ba_steps_rejected", res["n_rejected"])
         self.stats.record_count("lm_device_fetches", 1)
         self.stats.record_count("lm_local_bas", 1)
 
@@ -617,7 +626,7 @@ class LocalMapper:
     def _scale_refinement(self, kf: KeyFrame):
         raise NotImplementedError(
             "the monocular scale refinement (LocalMapping::ScaleRefinement) is not "
-            "ported yet (ROADMAP M9)"
+            "ported yet (ROADMAP M9c)"
         )
 
     def _local_inertial_ba(self, kf: KeyFrame, window: int = 8):

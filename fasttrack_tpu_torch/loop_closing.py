@@ -625,6 +625,8 @@ class LoopCloser:
                 m, self.camera, self.bf, self.inv_sigma2,
                 fixed_kf_ids=fixed_kf_ids,
                 should_abort=lambda: self.abort_gba, lock=lock, device=self.device,
+                # a map whose scale is free is a monocular one: mono edges only
+                mono_edges_only=not self.fix_scale,
             )
         self.n_gba_runs += 1
 

@@ -8,6 +8,7 @@ its top-K, which are hand-written CUDA kernels on a CUDA tensor
 from fasttrack_tpu_torch.ops.extractor import (  # noqa: F401
     Keypoints,
     OrbConfig,
+    extract_orb,
     extract_orb_pair,
     extract_orb_pair_stacked,
 )

@@ -1,7 +1,8 @@
 """ORB extraction pipeline: pyramid -> FAST -> IC angle -> rotated BRIEF.
 
-Port of fasttrack_tpu/ops/extractor.py (the stacked-pair route). Both
-cameras run as one flat 2L-level pipeline; keypoints, descriptors and the
+Port of fasttrack_tpu/ops/extractor.py. C stacked cameras run as one flat
+C*L-level pipeline (`extract_orb_stacked`): one camera is `extract_orb`,
+the stereo pair `extract_orb_pair`. Keypoints, descriptors and the
 pyramids stay on the images' device for the stereo and search stages.
 """
 
@@ -18,7 +19,7 @@ from fasttrack_tpu_torch.ops.descriptor import PATCH_HALF_EXT, brief_from_patche
 from fasttrack_tpu_torch.ops.fast import FastConfig, fast_detect
 from fasttrack_tpu_torch.ops.hamming import signed_descriptors
 from fasttrack_tpu_torch.ops.orientation import extract_patches, ic_angles_from_patches
-from fasttrack_tpu_torch.ops.pyramid import Pyramid, PyramidConfig, build_pyramid_pair
+from fasttrack_tpu_torch.ops.pyramid import Pyramid, PyramidConfig, pyramid_ops
 
 
 class OrbConfig(NamedTuple):
@@ -76,24 +77,24 @@ class Keypoints(NamedTuple):
 class LevelTables(nn.Module):
     """Per-config constants: the level scale factors, their squares (each
     level's sigma^2, rounded from the float64 power as the JAX package
-    does) and, for the flat two-camera keypoint list, each slot's absolute
-    level in [0, 2L)."""
+    does) and, for the flat keypoint list of `n_cameras` stacked cameras,
+    each slot's absolute level in [0, n_cameras * L)."""
 
-    def __init__(self, config: OrbConfig):
+    def __init__(self, config: OrbConfig, n_cameras: int = 2):
         super().__init__()
         L = config.n_levels
-        per_level2 = config.per_level_features() * 2
+        per_level_c = config.per_level_features() * n_cameras
         scales = np.asarray([config.scale_factor**l for l in range(L)], np.float32)
-        lvl2 = np.concatenate([np.full(k, l2, np.int64) for l2, k in enumerate(per_level2)])
+        lvl_stack = np.concatenate([np.full(k, lc, np.int64) for lc, k in enumerate(per_level_c)])
         sigma2 = np.asarray([config.scale_factor ** (2 * l) for l in range(L)], np.float32)
         self.register_buffer("scales", torch.from_numpy(scales))
         self.register_buffer("sigma2", torch.from_numpy(sigma2))
-        self.register_buffer("lvl2", torch.from_numpy(lvl2))
+        self.register_buffer("lvl_stack", torch.from_numpy(lvl_stack))
 
 
 @functools.lru_cache(maxsize=8)
-def level_tables(config: OrbConfig, device: torch.device) -> LevelTables:
-    return LevelTables(config).to(device)
+def level_tables(config: OrbConfig, device: torch.device, n_cameras: int = 2) -> LevelTables:
+    return LevelTables(config, n_cameras).to(device)
 
 
 def scale_factors(config: OrbConfig, device: torch.device) -> torch.Tensor:
@@ -101,26 +102,25 @@ def scale_factors(config: OrbConfig, device: torch.device) -> torch.Tensor:
     return level_tables(config, device).scales
 
 
-def extract_orb_pair(image_left: torch.Tensor, image_right: torch.Tensor,
-                     config: OrbConfig):
-    """Extract ORB for both stereo images in one flat pipeline.
+def extract_orb_stacked(images: torch.Tensor, config: OrbConfig):
+    """Extract ORB for C stacked images (C, H, W) (uint8 ok, cast on their
+    device) in one flat pipeline.
 
-    The pyramids are stacked into a (2L, H, W) level tensor so FAST, the
-    patch gather, IC angle and BRIEF all run once over 2N keypoints.
-    Returns (kps_left, kps_right, pyr_left, pyr_right)."""
+    The pyramids are stacked into a (C*L, H, W) level tensor so FAST, the
+    patch gather, IC angle and BRIEF all run once over C*N keypoints.
+    Returns (list of C Keypoints, list of C Pyramids)."""
     pcfg = config.pyramid
     L = pcfg.n_levels
-    tables = level_tables(config, image_left.device)
-    raw2, blur2 = build_pyramid_pair(image_left, image_right, pcfg)  # (2L, H, W)
-    pyr_l = Pyramid(raw2[:L], blur2[:L], pcfg)
-    pyr_r = Pyramid(raw2[L:], blur2[L:], pcfg)
+    C = images.shape[0]
+    tables = level_tables(config, images.device, C)
+    raw_c, blur_c = pyramid_ops(pcfg, images.device)(images.float())  # (C*L, H, W)
 
-    per_level2 = config.per_level_features() * 2
-    fk = fast_detect(raw2, tuple(pcfg.level_sizes) * 2, per_level2, config.fast)
-    # Flatten the per-level (2L, K) slots into one (2N,) set.
-    take = lambda a: torch.cat([a[l2, :k] for l2, k in enumerate(per_level2)])
+    per_level_c = config.per_level_features() * C
+    fk = fast_detect(raw_c, tuple(pcfg.level_sizes) * C, per_level_c, config.fast)
+    # Flatten the per-level (C*L, K) slots into one (C*N,) set.
+    take = lambda a: torch.cat([a[lc, :k] for lc, k in enumerate(per_level_c)])
     xl, yl, score, valid = take(fk.x), take(fk.y), take(fk.score), take(fk.valid)
-    lvl2 = tables.lvl2
+    lvl_stack = tables.lvl_stack
 
     # Invalid slots point at a safe in-bounds centre for the patch gather.
     ph = PATCH_HALF_EXT
@@ -128,19 +128,19 @@ def extract_orb_pair(image_left: torch.Tensor, image_right: torch.Tensor,
     safe_y = torch.where(valid, torch.clamp(yl, ph, pcfg.height - ph - 1), ph)
     # IC angle and BRIEF both read the BLURRED pyramid, as the JAX device
     # extractor does (ORB-SLAM3 takes the angle from the raw image).
-    patches = extract_patches(blur2, safe_x, safe_y, lvl2, ph)
+    patches = extract_patches(blur_c, safe_x, safe_y, lvl_stack, ph)
     angle = ic_angles_from_patches(patches)
     bits = brief_from_patches(patches, angle) * valid[:, None].to(torch.uint8)
     signed = signed_descriptors(bits)
     packed = pack_bits(bits)
 
-    level = (lvl2 % L).to(torch.int32)
+    level = (lvl_stack % L).to(torch.int32)
     s = tables.scales[level]
     n = config.total_features
-    out = []
-    for c in range(2):
+    kps, pyrs = [], []
+    for c in range(C):
         sl = slice(c * n, (c + 1) * n)
-        out.append(Keypoints(
+        kps.append(Keypoints(
             x=xl[sl].float() * s[sl],
             y=yl[sl].float() * s[sl],
             xl=xl[sl],
@@ -152,10 +152,36 @@ def extract_orb_pair(image_left: torch.Tensor, image_right: torch.Tensor,
             desc_packed=packed[sl],
             valid=valid[sl],
         ))
-    return out[0], out[1], pyr_l, pyr_r
+        pyrs.append(Pyramid(raw_c[c * L:(c + 1) * L], blur_c[c * L:(c + 1) * L], pcfg))
+    return kps, pyrs
+
+
+def extract_orb(image: torch.Tensor, config: OrbConfig):
+    """One image (H, W) (uint8 ok) -> (Keypoints, Pyramid), on its device."""
+    kps, pyrs = extract_orb_stacked(image[None], config)
+    return kps[0], pyrs[0]
+
+
+def make_extract_fn(config: OrbConfig):
+    """An image -> (Keypoints, Pyramid) closure over `config`."""
+
+    def fn(image):
+        return extract_orb(image, config)
+
+    return fn
+
+
+def extract_orb_pair(image_left: torch.Tensor, image_right: torch.Tensor,
+                     config: OrbConfig):
+    """Extract ORB for both stereo images in one flat pipeline (C = 2).
+    Returns (kps_left, kps_right, pyr_left, pyr_right)."""
+    (kl, kr), (pl, pr) = extract_orb_stacked(
+        torch.stack([image_left.float(), image_right.float()]), config)
+    return kl, kr, pl, pr
 
 
 def extract_orb_pair_stacked(images: torch.Tensor, config: OrbConfig):
     """extract_orb_pair on a stacked (2, H, W) image tensor (uint8 ok): one
     host->device upload for both cameras."""
-    return extract_orb_pair(images[0], images[1], config)
+    (kl, kr), (pl, pr) = extract_orb_stacked(images, config)
+    return kl, kr, pl, pr

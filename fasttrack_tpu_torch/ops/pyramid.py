@@ -124,6 +124,13 @@ def pyramid_ops(config: PyramidConfig, device: torch.device) -> PyramidOps:
     return PyramidOps(config).to(device)
 
 
+def build_pyramid(image: torch.Tensor, config: PyramidConfig) -> Pyramid:
+    """One image (H, W) (uint8 ok) -> Pyramid, each level resized from
+    level 0 directly, on the image's device."""
+    raw, blur = pyramid_ops(config, image.device)(image.float()[None])
+    return Pyramid(raw, blur, config)
+
+
 def build_pyramid_pair(
     image_left: torch.Tensor, image_right: torch.Tensor, config: PyramidConfig
 ):

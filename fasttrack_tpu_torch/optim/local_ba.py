@@ -52,6 +52,9 @@ class BAResult(NamedTuple):
     points: torch.Tensor
     inlier_mask: torch.Tensor  # (L, K) bool: post-chi2 classification
     chi2: torch.Tensor         # (L, K)
+    # () int32, counted on the device: the steps that the cost test accepted
+    # and the behind-the-camera rule rejected (ROADMAP F24)
+    n_rejected: torch.Tensor | None = None
 
 
 def local_bundle_adjustment(
@@ -60,8 +63,13 @@ def local_bundle_adjustment(
     bf: torch.Tensor,
     phase1_iters: int = 5,
     phase2_iters: int = 10,
+    mono_edges_only: bool = False,
 ) -> BAResult:
+    """`mono_edges_only`: the window is a monocular map's, whose every edge
+    is a mono one, as a KB8 map's is; such windows reject a step that moves
+    a live observation behind its camera (ROADMAP F24)."""
     is_stereo = problem.obs_ur >= 0
+    reject_behind = cam.kind == FISHEYE_KB8 or mono_edges_only
     delta2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
     obs_uv, obs_ur = problem.obs_uv, problem.obs_ur
 
@@ -73,7 +81,7 @@ def local_bundle_adjustment(
         w_rob = huber_weight(chi2, delta2) if use_robust else torch.ones_like(chi2)
         return chi2, w_rob * problem.inv_sigma2 * inlier
 
-    def lm_iter(poses, points, inlier, lam, use_robust):
+    def lm_iter(poses, points, inlier, lam, n_rej, use_robust):
         r, behind = ba_core.residuals(poses, points, cam, bf, obs_uv, obs_ur)
         # Residuals can overflow to inf in float32 for exploded points; such
         # observations must be fully dead or inf*0 -> NaN poisons the einsums.
@@ -106,22 +114,25 @@ def local_bundle_adjustment(
         c_old = torch.sum(chi2 * (w > 0))
         c_new = torch.sum(chi2_new * (w_new > 0))
         step_ok = torch.isfinite(dxc).all() & torch.isfinite(dxp).all()
-        if cam.kind == FISHEYE_KB8:
-            # A step that moves a live observation behind its camera drops
-            # it from c_new, so a KB8 window (mono edges only: fisheye points
-            # keep u_right = -1) can lower its cost by flipping its points
-            # behind the cameras, and its map falls apart. Such a step is
-            # rejected there; a pinhole window keeps the JAX package's
-            # accept test (ROADMAP F24).
-            step_ok = step_ok & ~((live > 0) & behind_new).any()
         accept = (c_new < c_old) & step_ok
+        if reject_behind:
+            # A step that moves a live observation behind its camera drops
+            # it from c_new, so a window of mono edges only (a KB8 map's:
+            # fisheye points keep u_right = -1; a monocular map's) can lower
+            # its cost by flipping its points behind the cameras, and its
+            # map falls apart. Such a step is rejected there; a stereo
+            # pinhole window keeps the JAX package's accept test (ROADMAP
+            # F24).
+            flips = ((live > 0) & behind_new).any()
+            n_rej = n_rej + (accept & flips).to(n_rej.dtype)
+            accept = accept & ~flips
         poses = SE3(
             torch.where(accept, poses_new.R, poses.R),
             torch.where(accept, poses_new.t, poses.t),
         )
         points = torch.where(accept, points_new, points)
         lam = torch.where(accept, lam * 0.5, lam * 4.0)
-        return poses, points, lam
+        return poses, points, lam, n_rej
 
     def classify(poses, points):
         r, behind = ba_core.residuals(poses, points, cam, bf, obs_uv, obs_ur)
@@ -131,15 +142,16 @@ def local_bundle_adjustment(
     poses, points = problem.poses, problem.points
     inlier = problem.mask.to(points.dtype)
     lam = torch.full((), 1e-4, dtype=points.dtype, device=points.device)
+    n_rej = torch.zeros((), dtype=torch.int32, device=points.device)
 
     for _ in range(phase1_iters):
-        poses, points, lam = lm_iter(poses, points, inlier, lam, use_robust=True)
+        poses, points, lam, n_rej = lm_iter(poses, points, inlier, lam, n_rej, use_robust=True)
 
     # chi2 outlier rejection between phases (Optimizer.cc LocalBA mid-check).
     inlier = classify(poses, points)[0].to(points.dtype)
 
     for _ in range(phase2_iters):
-        poses, points, lam = lm_iter(poses, points, inlier, lam, use_robust=False)
+        poses, points, lam, n_rej = lm_iter(poses, points, inlier, lam, n_rej, use_robust=False)
 
     final_inlier, chi2 = classify(poses, points)
-    return BAResult(poses, points, final_inlier, chi2)
+    return BAResult(poses, points, final_inlier, chi2, n_rej)

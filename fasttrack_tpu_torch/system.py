@@ -4,10 +4,16 @@ public tracking API + trajectory persistence.
 Port of fasttrack_tpu/system.py for `Sensor.STEREO` and `Sensor.IMU_STEREO`
 over the two rigs the reference's datasets ship: a pinhole pair (EuRoC),
 rectified at start-up when it is distorted, and a Kannala-Brandt-8
-fisheye pair (TUM-VI), which takes the fisheye route. Mirrors the
-reference: the constructor builds Atlas/Tracking/LocalMapping, TrackStereo
-is the entry point, then Shutdown and the trajectory savers in TUM / EuRoC
-/ KITTI formats (System.cc:590-1285).
+fisheye pair (TUM-VI), which takes the fisheye route; and for
+`Sensor.MONOCULAR`, one pinhole camera. Mirrors the reference: the
+constructor builds Atlas/Tracking/LocalMapping, TrackStereo and
+TrackMonocular are the entry points, then Shutdown and the trajectory
+savers in TUM / EuRoC / KITTI formats (System.cc:590-1285).
+
+A monocular System initializes from two views and closes loops with the
+scale free (fix_scale=False, a Sim3 loop correction), as the JAX System
+does. Only stereo sensors are rectified, so a monocular camera's
+distortion coefficients are ignored, as in the JAX package (ROADMAP F30).
 
 Start-up camera transforms, in the JAX package's order: input resize
 (Camera.newWidth / newHeight: the intrinsics scaled once, every frame
@@ -31,9 +37,9 @@ map the Sim3 solver and its refinement project through the pinhole K of
 camera 1's intrinsics, as in the JAX package (ROADMAP F21).
 
 Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: the monocular and RGB-D
-sensors with and without an IMU and atlas save/load, inertial maps
-included (M9).
+is asked for, never taking another path quietly: the monocular-inertial
+sensor (M9c), the RGB-D sensors with and without an IMU (M9d) and atlas
+save/load, inertial maps included (M9e).
 """
 
 from __future__ import annotations
@@ -73,11 +79,17 @@ class Sensor(enum.Enum):
     IMU_RGBD = 5
 
 
-def _needs_rectification(settings: Settings) -> bool:
-    """A distorted pinhole pair with a known extrinsic (the condition of
-    Settings::precomputeRectificationMaps, src/Settings.cc)."""
+_STEREO_SENSORS = (Sensor.STEREO, Sensor.IMU_STEREO)
+_NOT_PORTED = {Sensor.IMU_MONOCULAR: "M9c", Sensor.RGBD: "M9d", Sensor.IMU_RGBD: "M9d"}
+
+
+def _needs_rectification(settings: Settings, sensor: Sensor) -> bool:
+    """A stereo sensor's distorted pinhole pair with a known extrinsic (the
+    condition of Settings::precomputeRectificationMaps, src/Settings.cc; the
+    JAX System rectifies stereo sensors only, ROADMAP F30)."""
     return (
-        settings.camera_type == "PinHole"
+        sensor in _STEREO_SENSORS
+        and settings.camera_type == "PinHole"
         and settings.camera2 is not None
         and settings.T_c1_c2 is not None
         and settings.dist1 is not None
@@ -98,14 +110,14 @@ class System:
         vocabulary=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if sensor not in (Sensor.STEREO, Sensor.IMU_STEREO):
+        if sensor in _NOT_PORTED:
             raise NotImplementedError(
-                f"the sensor {sensor.name} is not ported yet (ROADMAP M9)"
+                f"the sensor {sensor.name} is not ported yet (ROADMAP {_NOT_PORTED[sensor]})"
             )
         if settings.load_atlas or settings.save_atlas:
             raise NotImplementedError(
                 "atlas save/load (System.LoadAtlasFromFile / SaveAtlasToFile) is "
-                "not ported yet (ROADMAP M9)"
+                "not ported yet (ROADMAP M9e)"
             )
         self.device = resolve(device)
         settings = dataclasses.replace(settings)    # the caller's stays as it was
@@ -150,7 +162,7 @@ class System:
         # distorted pinhole pair with a known extrinsic gets remap tables,
         # and the whole pipeline runs in the rectified frame.
         self._rect = None
-        if _needs_rectification(settings):
+        if _needs_rectification(settings, sensor):
             self._rect = compute_rectification(
                 settings.camera1, settings.dist1,
                 settings.camera2,
@@ -183,7 +195,8 @@ class System:
                 self.atlas, self.vocabulary,
                 np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]),
                 scale_factor=settings.scale_factor,
-                fix_scale=True,   # stereo and stereo-inertial: the scale is observed
+                # the scale is observed by a pair; a monocular map's is free (Sim3)
+                fix_scale=sensor is not Sensor.MONOCULAR,
                 run_async=async_mapping,
                 camera=settings.camera1,
                 bf=settings.bf or 1.0,
@@ -210,7 +223,8 @@ class System:
         # (Frame.cc:1115 fisheye ctor)
         stereo_rig = None
         if (
-            settings.camera_type in ("KannalaBrandt8", "Fisheye")
+            sensor in _STEREO_SENSORS
+            and settings.camera_type in ("KannalaBrandt8", "Fisheye")
             and settings.camera2 is not None
             and settings.T_c1_c2 is not None
         ):
@@ -224,6 +238,7 @@ class System:
             run_async=async_mapping,
             loop_closer=self.loop_closer,
             imu_calib=self.imu_calib,
+            monocular=sensor is Sensor.MONOCULAR,
             stats=self.stats,
             device=self.device,
         )
@@ -232,6 +247,7 @@ class System:
             kernel_config=self.kcfg, stats=self.stats,
             local_mapper=self.local_mapper,
             th_depth_factor=settings.th_depth,
+            monocular=sensor is Sensor.MONOCULAR,
             imu_calib=self.imu_calib,
             stereo_rig=stereo_rig,
             device=self.device,
@@ -246,7 +262,7 @@ class System:
 
     # ------------------------------------------------------------- tracking
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
-        if self.sensor not in (Sensor.STEREO, Sensor.IMU_STEREO):
+        if self.sensor not in _STEREO_SENSORS:
             raise RuntimeError("track_stereo called on non-stereo sensor config")
         if imu:
             self.tracker_grab_imu(imu)
@@ -275,7 +291,15 @@ class System:
         raise RuntimeError("track_rgbd called on non-RGBD sensor config")
 
     def track_monocular(self, img, timestamp: float, imu=None):
-        raise RuntimeError("track_monocular called on non-mono sensor config")
+        if self.sensor is not Sensor.MONOCULAR:
+            raise RuntimeError("track_monocular called on non-mono sensor config")
+        if imu:
+            self.tracker_grab_imu(imu)
+        if self._resize_to is not None:
+            t0 = time.perf_counter()
+            img = self._resize_input(img)
+            self.stats.record("input_resize", (time.perf_counter() - t0) * 1e3)
+        return self.tracker.track_monocular(img, timestamp)
 
     def tracker_grab_imu(self, imu_samples):
         """System::GrabImuData (System.cc:333): queue (t, acc, gyro) samples
@@ -303,10 +327,10 @@ class System:
             self.loop_closer.stop()
 
     def save_atlas(self, path: str):
-        raise NotImplementedError("atlas save is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("atlas save is not ported yet (ROADMAP M9e)")
 
     def load_atlas(self, path: str):
-        raise NotImplementedError("atlas load is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("atlas load is not ported yet (ROADMAP M9e)")
 
     # ------------------------------------------------------------ trajectory
     def _trajectory(self):

@@ -1,7 +1,8 @@
 """Tracking front-end: the per-frame state machine (src/Tracking.cc).
 
-Port of fasttrack_tpu/tracking.py for a rectified pinhole pair and a KB8
-fisheye pair, visual and stereo-inertial. Host-side
+Port of fasttrack_tpu/tracking.py for one pinhole camera (visual
+monocular), a rectified pinhole pair and a KB8 fisheye pair, visual and
+stereo-inertial. Host-side
 orchestration of the device programs, mirroring the reference's Track()
 control flow (Tracking.cc:1851-2392):
 
@@ -45,8 +46,18 @@ toggle that is off keeps every frame stepwise. Pose optimization itself and
 the reference-keyframe matcher run on the device under every mask, as in
 the JAX package. A KB8 pair with its rig (`stereo_rig`) takes the fisheye
 front end (frame_pipeline.process_fisheye_frame_stacked) before the
-toggles are read, as in the JAX package (ROADMAP F22). The monocular and
-RGB-D front ends raise NotImplementedError with their ROADMAP item (M9).
+toggles are read, as in the JAX package (ROADMAP F22).
+
+A monocular tracker (`monocular=True`) extracts one image
+(frame_pipeline.process_mono_frame) and never takes the host route: like
+the JAX package it reads no toggle of the front end (ROADMAP F29). It
+initializes from two views (MonocularInitialization: a sliding reference
+frame, the level-0 search at radius 100 and ratio 0.9,
+optim.two_view.reconstruct_two_view, the map scaled to a median depth of
+1), creates no points itself afterwards (the mapper's epipolar
+triangulation does), and asks for keyframes at the reference ratio 0.9.
+The monocular-inertial tracker (M9c) and the RGB-D front end (M9d) raise
+NotImplementedError with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.frame_pipeline import (
     pack_frame_for_host,
     process_fisheye_frame_stacked,
+    process_mono_frame,
     process_stereo_frame_stacked,
 )
 from fasttrack_tpu_torch.fused_track import (
@@ -99,6 +111,7 @@ from fasttrack_tpu_torch.ops import host_kernels as hk
 from fasttrack_tpu_torch.ops.extractor import OrbConfig, extract_orb_pair_stacked
 from fasttrack_tpu_torch.ops.project_match import (
     TH_HIGH,
+    search_by_projection,
     tlm_match_packed,
     twm_match_packed,
 )
@@ -113,6 +126,7 @@ from fasttrack_tpu_torch.optim.inertial import (
     whitening_np,
 )
 from fasttrack_tpu_torch.optim.pnp import ransac_pnp
+from fasttrack_tpu_torch.optim.two_view import reconstruct_two_view
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 
@@ -193,8 +207,11 @@ class Tracker:
         stereo_rig=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if monocular:
-            raise NotImplementedError("monocular tracking is not ported yet (ROADMAP M9)")
+        if monocular and imu_calib is not None:
+            raise NotImplementedError(
+                "monocular-inertial tracking is not ported yet (ROADMAP M9c)"
+            )
+        self.monocular = monocular
         self.device = resolve(device)
         # a KB8 pair's rig (cameras.stereo.StereoRig): the fisheye route
         self.stereo_rig = None if stereo_rig is None else stereo_rig.to(self.device)
@@ -219,6 +236,7 @@ class Tracker:
         self.camera = dataclasses.replace(camera, params=camera.params.to(self.device))
         self._cam_host = host_camera(camera)   # host copy for the query blocks
         self._tlm_cand_ids = None  # local-map candidate ids for fused frames
+        self._init_reference: Optional[TrackedFrame] = None  # monocular init
         self.reloc_db = None      # KeyFrameDatabase (shared with loop closing)
         self.vocabulary = None
         self.cfg = orb_config
@@ -397,10 +415,24 @@ class Tracker:
         return self._track_prepared(frame, t0)
 
     def track_rgbd(self, img, depth_map, timestamp: float):
-        raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP M9d)")
 
     def track_monocular(self, img, timestamp: float):
-        raise NotImplementedError("monocular tracking is not ported yet (ROADMAP M9)")
+        """One image: ONE uint8 host->device transfer (the cast to float32
+        happens on the device), the fused path when it is eligible, else
+        stepwise. No host route: the toggles of the front end are not read,
+        as in the JAX package (ROADMAP F29)."""
+        t0 = time.perf_counter()
+        img_u8 = np.asarray(img, np.uint8)
+
+        def dispatch_mono():
+            return process_mono_frame(torch.from_numpy(img_u8).to(self.device), self.cfg)
+
+        if self._fused_eligible():
+            out = self._track_fused(dispatch_mono, timestamp, t0)
+            if out is not NotImplemented:
+                return out
+        return self._track_frame(dispatch_mono(), timestamp, t0)
 
     # --------------------------------------------------------- inertial utils
     def grab_imu(self, samples):
@@ -766,7 +798,10 @@ class Tracker:
             self._preintegrate_imu(timestamp)
 
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            self._stereo_initialization(frame)
+            if self.monocular:
+                self._monocular_initialization(frame)
+            else:
+                self._stereo_initialization(frame)
         else:
             self._track(frame)
 
@@ -814,6 +849,90 @@ class Tracker:
         self.last_kf_frame_id = self.frame_id
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kf)
+        self.state = TrackingState.OK
+
+    # --------------------------------------------- monocular initialization
+    def _monocular_initialization(self, frame: TrackedFrame):
+        """Tracking::MonocularInitialization (Tracking.cc:2505) +
+        CreateInitialMapMonocular (:2583): two-view reconstruction between a
+        reference frame and the current frame; map scaled to median depth 1."""
+        n_min = 100
+        if self._init_reference is None or frame.valid.sum() < n_min:
+            self._init_reference = frame if frame.valid.sum() >= n_min else None
+            self.state = TrackingState.NOT_INITIALIZED
+            return
+        ref = self._init_reference
+        # SearchForInitialization (ORBmatcher.cc:747): level-0 features,
+        # window radius 100, ratio 0.9; the reference frame's keypoints are
+        # the queries (uploaded), the current frame's stay on the device.
+        M = len(ref.kp_uv)
+        x, y, desc, level, valid, _ = self._frame_device_arrays(frame)
+        zeros = torch.zeros(M, dtype=torch.int32, device=self.device)
+        res = search_by_projection(
+            self._upload(ref.kp_uv[:, 0], np.float32), self._upload(ref.kp_uv[:, 1], np.float32),
+            self._upload(ref.desc_signed, np.int8),
+            torch.full((M,), 100.0, device=self.device), zeros, zeros,
+            self._upload(ref.valid & (ref.kp_level == 0), np.bool_),
+            x, y, desc, level, valid & (level == 0),
+            ratio=0.9,
+        )
+        ok, idx = device_fetch(res.ok, res.idx)
+        self.stats.record_count("device_fetches", 1)
+        if ok.sum() < n_min:
+            self._init_reference = frame  # slide the reference forward
+            return
+        i1 = np.where(ok)[0]
+        i2 = idx[i1]
+        p = self._cam_host.params
+        K = np.array([[p[0], 0, p[2]], [0, p[1], p[3]], [0, 0, 1.0]])
+        t_tv = time.perf_counter()
+        tv = reconstruct_two_view(
+            ref.kp_uv[i1].astype(np.float32), frame.kp_uv[i2].astype(np.float32), K,
+            device=self.device,
+        )
+        self.stats.record("mono_two_view", (time.perf_counter() - t_tv) * 1e3)
+        if not tv.success:
+            return
+        # Scale: median depth -> 1 (CreateInitialMapMonocular).
+        good = tv.good_mask
+        med_z = float(np.median(tv.points3d[good, 2]))
+        if med_z <= 0:
+            return
+        scale = 1.0 / med_z
+        X = tv.points3d * scale
+
+        ref.R_cw = np.eye(3)
+        ref.t_cw = np.zeros(3)
+        frame.R_cw = tv.R
+        frame.t_cw = tv.t * scale
+        m = self.atlas.current
+        kf1 = self._make_keyframe(ref)
+        m.add_keyframe(kf1)
+        kf2 = self._make_keyframe(frame)
+        m.add_keyframe(kf2)
+        for k in np.where(good)[0]:
+            a, b = int(i1[k]), int(i2[k])
+            mp = MapPoint(self.atlas.next_mp_id(), X[k], kf2.kid, kf1.kid)
+            mp.add_observation(kf1.kid, a)
+            mp.add_observation(kf2.kid, b)
+            mp.desc_packed = frame.desc_packed[b]
+            mp.desc_signed = frame.desc_signed[b]
+            mp.update_normal_and_depth(
+                {kf1.kid: kf1.center, kf2.kid: kf2.center}, kf2.center,
+                int(frame.kp_level[b]), self.cfg.scale_factor, self.cfg.n_levels,
+            )
+            kf1.mp_ids[a] = mp.mid
+            kf2.mp_ids[b] = mp.mid
+            frame.mp_ids[b] = mp.mid
+            m.add_mappoint(mp)
+        m.update_connections(kf1)
+        m.update_connections(kf2)
+        self.ref_kf_id = kf2.kid
+        self.last_kf_frame_id = self.frame_id
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf1)
+            self.local_mapper.insert_keyframe(kf2)
+        self._init_reference = None
         self.state = TrackingState.OK
 
     def _make_keyframe(self, frame: TrackedFrame) -> KeyFrame:
@@ -944,6 +1063,7 @@ class Tracker:
         self.last_kf_state = None
         self.pre_from_kf = None
         self._prior_H = None
+        self._init_reference = None
 
     def _handle_lost(self):
         """Tracking.cc:2071-2089: abandon small maps, else start a fresh map
@@ -1539,7 +1659,8 @@ class Tracker:
         close_tracked = int((close & (frame.mp_ids >= 0)).sum())
         close_new = int((close & (frame.mp_ids < 0)).sum())
         need_insert_close = (close_tracked < 100) and (close_new > 70)
-        th_ref = 0.75 if m.n_keyframes() > 2 else 0.4
+        # mono needs denser keyframes (reference thRefRatio=0.9 monocular)
+        th_ref = 0.9 if self.monocular else (0.75 if m.n_keyframes() > 2 else 0.4)
         c1a = self.frame_id >= self.last_kf_frame_id + self.max_frames
         c1b = self.frame_id >= self.last_kf_frame_id + self.min_frames
         c2 = (

@@ -31,15 +31,40 @@ features, 4 levels, no vocabulary; ROADMAP F24):
 variants of it, one JSON line each (F25): the visual System, a 50 deg
 circle, no tilt, a 0.2 m baseline, the plane at 2.5 and 2 m, and a pinhole
 pair at TUM-VI's focal length.
+
+`mono_reading("jax" | "torch")` reads phase 24a's frames (the first
+chip_smoke.N_MONO_FRAMES of phase 10's 752x480 sequence) through one
+package's `System(Sensor.MONOCULAR)` in its default configuration (the
+shipped vocabulary), 8 levels, 1024 features, on the CPU: the state of
+every frame, the initialization frame, the init pair's parallax (the 50th
+good point's, as the two-view gate reads it) and its map's median
+reprojection error, and the Sim(3)-aligned ATE over all frames and up to
+the first loss after the init (ROADMAP F31). `hold=5` holds the
+initializer's reference frame at least 5 frames back (a reading of
+whether the short baseline of a reference slid every frame is what sinks
+the map); the packages are not changed for it, the tracker's
+initialization is wrapped from here:
+
+    JAX_PLATFORMS=cpu python -c 'from rig_reading import mono_reading as r; r("jax")'
 """
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
 
-from chip_smoke import KB8_FOV_DEG, KB8_PLANE_Z, KB8_SIZE, N_RIG_FRAMES
+from chip_smoke import (
+    KB8_FOV_DEG,
+    H,
+    W,
+    KB8_PLANE_Z,
+    KB8_SIZE,
+    N_MONO_FRAMES,
+    N_RIG_FRAMES,
+    N_SYSTEM_FRAMES,
+)
 
 
 def reading(package, size, rig, n_frames, plane_z, seed=0, vocabulary=True, **settings_kw):
@@ -219,6 +244,133 @@ def scene_variants():
             "ms_median": float(np.median([r["ms"] for r in log[2:]])),
             "render_s": t_r, "s": time.perf_counter() - t0,
         }), flush=True)
+
+
+def _init_parallax_deg(R, t, X, good):
+    """The two-view gate's parallax (fasttrack_tpu/optim/two_view.py:270-279):
+    the angle between the rays of the 50th-largest-parallax good point."""
+    X = np.asarray(X, np.float64)[np.asarray(good)]
+    if len(X) == 0:
+        return 0.0
+    C2 = -np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+    n1 = X / np.linalg.norm(X, axis=1, keepdims=True)
+    d2 = X - C2
+    n2 = d2 / np.linalg.norm(d2, axis=1, keepdims=True)
+    cos = np.sort(np.sum(n1 * n2, axis=1))
+    return float(np.degrees(np.arccos(np.clip(cos[min(50, len(cos) - 1)], -1.0, 1.0))))
+
+
+def _map_reprojection_px(m, camera_params):
+    """Median pixel reprojection error of every observation of the map."""
+    fx, fy, cx, cy = (float(v) for v in np.asarray(camera_params)[:4])
+    err = []
+    for mp in m.mappoints.values():
+        for kid, i in mp.observations.items():
+            kf = m.keyframes.get(kid)
+            if kf is None:
+                continue
+            Xc = np.asarray(kf.R_cw) @ np.asarray(mp.position, np.float64) + np.asarray(kf.t_cw)
+            uv = np.array([fx * Xc[0] / Xc[2] + cx, fy * Xc[1] / Xc[2] + cy])
+            err.append(float(np.linalg.norm(uv - np.asarray(kf.kp_uv[i], np.float64))))
+    return float(np.median(err)) if err else None
+
+
+def mono_reading(package, n_frames=N_MONO_FRAMES, hold=0):
+    """Phase 24a's frames through one package's monocular System on the CPU;
+    prints a line per frame and one JSON object."""
+    from fasttrack_tpu_torch.datasets import synthetic
+    from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
+
+    seq = synthetic.generate_sequence(n_frames=N_SYSTEM_FRAMES, h=H, w=W)
+    frames = seq.frames[:n_frames]
+    if package == "jax":
+        from fasttrack_tpu.cameras import make_pinhole
+        from fasttrack_tpu.optim import two_view
+        from fasttrack_tpu.settings import Settings
+        from fasttrack_tpu.system import Sensor, System
+
+        cam = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H)
+        system = System(Settings(camera1=cam, bf=0.0, width=W, height=H, n_features=1024,
+                                 n_levels=8, scale_factor=1.2), Sensor.MONOCULAR)
+    else:
+        from fasttrack_tpu_torch.cameras import make_pinhole
+        from fasttrack_tpu_torch.optim import two_view
+        from fasttrack_tpu_torch.settings import Settings
+        from fasttrack_tpu_torch.system import Sensor, System
+
+        cam = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device="cpu")
+        system = System(Settings(camera1=cam, bf=0.0, width=W, height=H, n_features=1024,
+                                 n_levels=8, scale_factor=1.2), Sensor.MONOCULAR, device="cpu")
+    tracker = system.tracker
+    # the two-view results, read from outside: the JAX tracker imports the
+    # function from its module where it calls it, the port's tracker holds
+    # the name in its own module
+    results = []
+    owner = two_view if package == "jax" else sys.modules[type(tracker).__module__]
+    inner_tv = owner.reconstruct_two_view
+
+    def recorded(p1, p2, K, **kw):
+        res = inner_tv(p1, p2, K, **kw)
+        results.append((len(p1), res))
+        return res
+
+    owner.reconstruct_two_view = recorded
+    if hold:
+        inner_init = tracker._monocular_initialization
+
+        def held(frame):
+            ref = tracker._init_reference
+            if ref is not None and frame.frame_id - ref.frame_id < hold:
+                return
+            inner_init(frame)
+
+        tracker._monocular_initialization = held
+
+    states, init, init_reproj = [], None, None
+    t0 = time.perf_counter()
+    try:
+        for i, f in enumerate(frames):
+            system.track_monocular(f.left, f.timestamp)
+            state = tracker.state.name
+            states.append(state)
+            if init is None and state == "OK":
+                init = i
+                init_reproj = _map_reprojection_px(system.atlas.current, cam.params)
+            print(f"frame {i} {state} keyframes {system.atlas.current.n_keyframes()} map points "
+                  f"{system.atlas.current.n_mappoints()}", flush=True)
+    finally:
+        owner.reconstruct_two_view = inner_tv
+    system.shutdown()
+    traj = tracker.trajectory
+    loss = next((i for i in range(init or 0, len(states)) if states[i] != "OK"), None)
+
+    def ate(part):
+        if len(part) < 3:
+            return None
+        a = absolute_trajectory_error(np.asarray([t for t, _, _ in part]),
+                                      np.asarray([-R.T @ t for _, R, t in part]),
+                                      seq.gt_t, seq.gt_pos, with_scale=True)
+        return {"rmse": a["rmse"], "scale": a.get("scale"), "n": len(part)}
+
+    t_loss = frames[loss].timestamp if loss is not None else np.inf
+    good = [r for _, r in results if r.success]
+    tv = good[-1] if good else None
+    gt = np.asarray(seq.gt_pos[:n_frames])
+    print(json.dumps({
+        "package": package, "hold": hold, "frames": n_frames,
+        "states": "".join(s[0] for s in states),
+        "init_frame": init, "frames_ok": states.count("OK"), "first_loss_after_init": loss,
+        "two_view_attempts": len(results), "init_matches": results[-1][0] if good else None,
+        "init_used_homography": None if tv is None else bool(tv.used_homography),
+        "init_good_points": None if tv is None else int(np.sum(tv.good_mask)),
+        "init_parallax_deg": None if tv is None else _init_parallax_deg(
+            tv.R, tv.t, tv.points3d, tv.good_mask),
+        "init_map_reprojection_px_median": init_reproj,
+        "keyframes": system.atlas.current.n_keyframes(),
+        "map_points": system.atlas.current.n_mappoints(),
+        "ate_sim3": ate(traj), "ate_sim3_to_first_loss": ate([r for r in traj if r[0] < t_loss]),
+        "rms_motion_m": float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean())),
+        "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def main():

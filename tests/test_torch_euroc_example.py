@@ -20,7 +20,12 @@
 - `--mode` and `--po` run the offload toggles' host sides: `--mode 0000
   --po 0` (everything on the host, pose optimization bypassed) and `--mode
   1011` (device extraction, host stereo) track all 16 frames and pass the
-  same ATE gate.
+  same ATE gate;
+- `examples/torch_mono_euroc.py` (M9b) on the same layout with `--device
+  cpu --gt`, beside the JAX package's `examples/mono_euroc.py` on the same
+  files: it initializes, writes the trajectory files, and its Sim(3)
+  ATE is no worse than the JAX script's by more than 5 mm; `--imu` exits
+  with an error that names M9c.
 """
 
 import contextlib
@@ -350,4 +355,54 @@ def test_example_with_imu_needs_the_imu_stream(tmp_path):
             os.path.join(root, "settings.yaml"), root, "--imu", "--out", str(tmp_path / "o"),
             "--device", "cpu"])
     assert isinstance(e.value.code, str) and "imu0/data.csv" in e.value.code
+    assert not (tmp_path / "o").exists()
+
+
+# ------------------------------------------------------ the monocular script
+@pytest.fixture(scope="module")
+def driven_mono(rendered, tmp_path_factory):
+    """The port's monocular script and the JAX package's on the rendered files."""
+    out_t = str(tmp_path_factory.mktemp("out_mono_torch"))
+    out_j = str(tmp_path_factory.mktemp("out_mono_jax"))
+    args = [os.path.join(rendered, "settings.yaml"), rendered,
+            "--gt", os.path.join(rendered, "gt.txt")]
+    with one_torch_thread():
+        run_script(os.path.join(EXAMPLES, "torch_mono_euroc.py"),
+                   args + ["--out", out_t, "--device", "cpu"])
+    with jax_native_library(tmp_path_factory.mktemp("jax_native_mono")):
+        run_script(os.path.join(EXAMPLES, "mono_euroc.py"), args + ["--out", out_j])
+    return out_t, out_j
+
+
+def test_mono_example_initializes_and_writes_the_trajectories(driven_mono):
+    out_t, out_j = driven_mono
+    for name in ("f_traj.txt", "f_traj_euroc.txt", "kf_traj.txt"):
+        got = np.atleast_2d(np.loadtxt(os.path.join(out_t, name)))
+        want = np.atleast_2d(np.loadtxt(os.path.join(out_j, name)))
+        assert got.shape[1] == want.shape[1], name
+        assert len(got) >= 2, name          # the two keyframes of the init at least
+    with open(os.path.join(out_t, "data", "mono_two_view.txt")) as f:
+        assert len(f.read().split()) >= 2   # one two-view attempt at least
+    with open(os.path.join(out_t, "ate.json")) as f:
+        ate = json.load(f)
+    assert np.isfinite(ate["ate_rmse"]) and ate["n_frames_tracked"] >= 10, ate
+    assert np.isfinite(ate["scale"])        # a Sim(3) alignment
+
+
+def test_mono_example_ate_no_worse_than_the_jax_example(driven_mono):
+    out_t, out_j = driven_mono
+    with open(os.path.join(out_t, "ate.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(out_j, "ate.json")) as f:
+        want = json.load(f)
+    assert got["n_frames_tracked"] == want["n_frames_tracked"], (got, want)
+    assert got["ate_rmse"] <= want["ate_rmse"] + 0.005, (got, want)
+
+
+def test_mono_example_with_imu_exits_naming_m9c(rendered, tmp_path):
+    with pytest.raises(SystemExit) as e:
+        run_script(os.path.join(EXAMPLES, "torch_mono_euroc.py"), [
+            os.path.join(rendered, "settings.yaml"), rendered, "--imu",
+            "--out", str(tmp_path / "o"), "--device", "cpu"])
+    assert isinstance(e.value.code, str) and "M9c" in e.value.code
     assert not (tmp_path / "o").exists()

@@ -18,7 +18,8 @@
 - `nputils.device_fetch` returns what it was given, in one copy.
 - The System given a distorted pinhole pair to rectify and a size to
   resize to, and given a KB8 pair, does the same; no NotImplementedError
-  of the port names resize, rectification or KB8 any more.
+  of the port names resize, rectification or KB8 any more. So do
+  `reconstruct_two_view` and the monocular System (M9b).
 - Place recognition: the vocabulary is the port's own copy, loaded from its
   own directory; `LoopCloser`, the default `System` (which builds one) and
   the functions that run on a device (`quantize` of a flat vocabulary,
@@ -58,6 +59,7 @@ ROOT = PACKAGE.parent
 MODULES = sorted(PACKAGE.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_torch.py",
     ROOT / "examples" / "torch_stereo_euroc.py", ROOT / "examples" / "torch_stereo_tumvi.py",
+    ROOT / "examples" / "torch_mono_euroc.py",
 ]
 
 
@@ -90,7 +92,7 @@ def test_package_has_the_slice_modules():
         "optim/inertial.py", "native.py",
         "bow/__init__.py", "bow/vocabulary.py", "bow/database.py", "optim/pnp.py",
         "optim/sim3_solver.py", "optim/sim3_opt.py", "optim/pose_graph.py", "loop_closing.py",
-        "cameras/rectify.py",
+        "cameras/rectify.py", "optim/two_view.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu", "fasttrack_native.cpp"):
@@ -459,9 +461,36 @@ def test_no_not_implemented_error_names_resize_rectification_or_kb8():
                 for word in ("resize", "rectif", "kb8", "fisheye", "kannala", "newwidth"):
                     assert word not in low, f"{path.relative_to(ROOT)}:{n}: {line.strip()}"
     # the sensors and parts still to port keep their raise
-    with pytest.raises(NotImplementedError, match="M9"):
-        system.System(_rig_settings("kb8", "cpu"), system.Sensor.MONOCULAR, device="cpu")
+    with pytest.raises(NotImplementedError, match="M9c"):
+        system.System(_rig_settings("kb8", "cpu"), system.Sensor.IMU_MONOCULAR, device="cpu")
     atlas = _rig_settings("kb8", "cpu")
     atlas.load_atlas = "in.osa"
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="M9e"):
         system.System(atlas, system.Sensor.STEREO, device="cpu")
+
+
+def test_the_monocular_path_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    """reconstruct_two_view and System(Sensor.MONOCULAR) (M9b) resolve
+    device=None to the card; device="cpu" is honoured, and the tracker's
+    two-view call gets the System's device. A second camera in the settings
+    is ignored by the monocular System: no rectification, no fisheye rig."""
+    from fasttrack_tpu_torch.optim import two_view
+
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-3, 3, 60), rng.uniform(-2, 2, 60), rng.uniform(4, 10, 60)], -1)
+    K = np.array([[400.0, 0, 320], [0, 400, 240], [0, 0, 1]])
+    p1 = (X @ K.T)[:, :2] / X[:, 2:]
+    X2 = X + np.array([0.3, 0.0, 0.0])
+    p2 = (X2 @ K.T)[:, :2] / X2[:, 2:]
+    assert two_view.reconstruct_two_view(p1, p2, K, device="cpu").success
+    _asks_the_resolver(monkeypatch, [two_view], lambda: two_view.reconstruct_two_view(p1, p2, K))
+    monkeypatch.undo()
+    for kind in ("rectified-resized", "kb8"):
+        s = system.System(_rig_settings(kind, "cpu"), system.Sensor.MONOCULAR, vocabulary=False,
+                          device="cpu")
+        assert s._rect is None and s.tracker.stereo_rig is None and s.tracker.monocular
+        assert s.loop_closer is None and s.tracker.device == torch.device("cpu")
+    made = _asks_the_resolver(monkeypatch, [system], lambda: system.System(
+        _rig_settings("rectified-resized", "cpu"), system.Sensor.MONOCULAR))
+    assert made.tracker.device == made.local_mapper.device == made.loop_closer.device == made.device
+    assert made.loop_closer.fix_scale is False

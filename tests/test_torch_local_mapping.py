@@ -624,14 +624,23 @@ def test_tracker_with_a_mapper_follows_the_jax_tracker(mapped):
 
 # -------------------------------------------------------------- what is left out
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial
-    (dict(monocular=True), "M9"),
+    (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial (M9c)
     (dict(mesh=object()), "M10"),
 ])
 def test_left_out_branches_raise_with_their_item(kwargs, item):
     _, tcam = cams()
     with pytest.raises(NotImplementedError, match=item):
         tmapping.LocalMapper(tmap.Atlas(), tcam, 28.0, device="cpu", **kwargs)
+
+
+def test_the_visual_monocular_mapper_builds():
+    """A monocular map without an IMU (M9b) is mapped; its scale
+    refinement, which only a monocular-inertial map runs, still raises."""
+    _, tcam = cams()
+    mapper = tmapping.LocalMapper(tmap.Atlas(), tcam, 0.0, monocular=True, device="cpu")
+    assert mapper.monocular and mapper.imu_calib is None
+    with pytest.raises(NotImplementedError, match="M9c"):
+        mapper._scale_refinement(None)
 
 
 def test_a_mapper_on_its_thread_queues_to_the_loop_closer():

@@ -243,12 +243,11 @@ def _settings(**kw):
 
 
 LEFT_OUT = {
-    "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9"),
-    "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9"),
-    "MONOCULAR": (dict(), dict(sensor=Sensor.MONOCULAR), "M9"),
-    "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9"),
-    "load_atlas": (dict(load_atlas="a.osa"), dict(), "M9"),
-    "save_atlas": (dict(save_atlas="a.osa"), dict(), "M9"),
+    "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9c"),
+    "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9d"),
+    "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9d"),
+    "load_atlas": (dict(load_atlas="a.osa"), dict(), "M9e"),
+    "save_atlas": (dict(save_atlas="a.osa"), dict(), "M9e"),
 }
 
 
@@ -259,6 +258,37 @@ def test_left_out_branch_raises_with_its_item(name):
     kw.update(system_kw)
     with pytest.raises(NotImplementedError, match=item):
         System(_settings(**settings_kw), **kw)
+
+
+def test_monocular_system_takes_the_mono_route(monkeypatch):
+    """Sensor.MONOCULAR (M9b) builds: a monocular tracker and mapper, no
+    rectification or fisheye rig even with a second camera given, and
+    track_monocular runs process_mono_frame on the System's device."""
+    from fasttrack_tpu_torch import frame_pipeline, tracking
+
+    calls = []
+    inner = frame_pipeline.process_mono_frame
+
+    def counted(image, config):
+        calls.append((image.shape, image.dtype, image.device.type))
+        return inner(image, config)
+
+    monkeypatch.setattr(tracking, "process_mono_frame", counted)
+    settings = _settings(
+        bf=0.0, camera2=make_pinhole(256.0, 256.0, 160.0, 120.0, W, H, device="cpu"),
+        T_c1_c2=np.eye(4) + np.eye(4, k=3) * 0.11, dist1=np.array([-0.28, 0.07, 0.0, 0.0]))
+    system = System(settings, Sensor.MONOCULAR, vocabulary=False, device="cpu")
+    assert system.tracker.monocular and system.local_mapper.monocular
+    assert system._rect is None and system.tracker.stereo_rig is None
+    f = synthetic.generate_sequence(n_frames=1, h=H, w=W, seed=2).frames[0]
+    system.track_monocular(f.left, 0.0)
+    assert calls == [((H, W), torch.uint8, "cpu")]
+    assert system.tracking_state.name == "NOT_INITIALIZED"   # the first frame is the reference
+    with pytest.raises(RuntimeError, match="non-stereo"):
+        system.track_stereo(f.left, f.right, 0.05)
+    with pytest.raises(RuntimeError, match="non-inertial"):
+        system.track_monocular(f.left, 0.05, imu=[(0.0, np.zeros(3), np.zeros(3))])
+    system.shutdown()
 
 
 # the start-up camera transforms and the fisheye rig (M9a): each builds and

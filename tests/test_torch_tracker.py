@@ -53,6 +53,7 @@ from fasttrack_tpu_torch.cameras import make_kannala_brandt8, make_pinhole
 from fasttrack_tpu_torch.cameras.stereo import stereo_rig_from_numpy
 from fasttrack_tpu_torch.datasets import synthetic
 from fasttrack_tpu_torch.evaluation import ate
+from fasttrack_tpu_torch.imu.preintegration import ImuCalib
 from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.ops import project_match as tpm
 from fasttrack_tpu_torch.ops import stereo_match as tsm
@@ -556,10 +557,7 @@ CFG = OrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS)
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object(), monocular=True), "M9"),     # monocular-inertial
-    (dict(monocular=True), "M9"),
-    # a KB8 rig is ported (M9a); with a monocular tracker it still raises
-    (dict(stereo_rig=object(), monocular=True), "M9"),
+    (dict(imu_calib=object(), monocular=True), "M9"),     # monocular-inertial (M9c)
 ])
 def test_left_out_constructor_arguments_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -569,21 +567,36 @@ def test_left_out_constructor_arguments_raise(kwargs, item):
 def test_kb8_camera_raises():
     """Since M9a a KB8 camera builds: with its rig it takes the fisheye
     route, without one the rectified route, as the JAX tracker does; what
-    still raises for it is the monocular tracker."""
+    still raises for it is the monocular-inertial tracker (M9c), since the
+    visual monocular one builds (M9b)."""
     cam = make_kannala_brandt8(190.0, 190.0, 160.0, 120.0, 0, 0, 0, 0, W, H, device="cpu")
     assert tracking.Tracker(cam, CFG, 28.0, Atlas(), device="cpu").stereo_rig is None
     rig = stereo_rig_from_numpy(cam, cam, np.eye(4) + np.eye(4, k=3) * 0.1, 19.0, device="cpu")
     tr = tracking.Tracker(cam, CFG, 19.0, Atlas(), stereo_rig=rig, device="cpu")
     assert tr.stereo_rig.left.params.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="M9"):
-        tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu")
+    assert tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu").monocular
+    with pytest.raises(NotImplementedError, match="M9c"):
+        tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu",
+                         imu_calib=ImuCalib.default(device="cpu"))
+
+
+def test_monocular_tracker_builds_and_resets_its_initializer():
+    """The visual monocular tracker (M9b) builds with no reference frame;
+    ResetActiveMap drops the reference, as the JAX tracker does
+    (fasttrack_tpu/tracking.py:1012)."""
+    tr = tracking.Tracker(_cam(), CFG, 1.0, Atlas(), monocular=True, device="cpu")
+    assert tr.monocular and tr._init_reference is None
+    tr.track_monocular(np.zeros((H, W), np.uint8), 0.0)   # no keypoint: no reference
+    assert tr.state.name == "NOT_INITIALIZED" and tr._init_reference is None
+    tr._init_reference = object()
+    tr._reset_active_map()
+    assert tr._init_reference is None and tr.state.name == "NOT_INITIALIZED"
 
 
 @pytest.mark.parametrize("call, item", [
     (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),
-    (lambda tr, img: tr.track_monocular(img, 0.0), "M9"),
     (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),   # with samples queued
-], ids=["track_rgbd", "track_monocular", "track_rgbd_after_grab_imu"])
+], ids=["track_rgbd", "track_rgbd_after_grab_imu"])
 def test_left_out_entry_points_raise(call, item):
     tr = tracking.Tracker(_cam(), CFG, 28.0, Atlas(), device="cpu")
     tr.grab_imu([(0.0, np.zeros(3), np.zeros(3))])     # queues, as the JAX Tracker does
