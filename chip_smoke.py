@@ -199,6 +199,22 @@ Phases, each printing a line; any failure raises and exits non-zero:
    and success, R 1e-3 rad, good_mask 99%; its ms and device kernels a
    call, ROADMAP K17), and the System's first 8 frames on both (the same
    states, camera centres within 1e-3 of the map's unit median depth).
+25. the monocular-inertial System (M9c): (a) System(Sensor.IMU_MONOCULAR)
+   in its default configuration (the shipped vocabulary, the loop closer
+   inline with the scale fixed) over 24a's frames with their 200 Hz IMU
+   stream, up to the frame of its first scale refinement (cut there for
+   the run's time): the two-view init, the IMU init with its scale, the
+   scale refinement, every frame after the IMU init OK, the Sim(3) scale of
+   those frames within 5% of 1.0 and their SE(3) ATE beside their RMS
+   motion, ms/frame of stepwise, fused inertial and keyframe frames, the
+   IMU init's and the refinements' ms, the inertial windows' flipped steps
+   (ROADMAP F24), both kernels' launches by stage; then the scene of
+   tests/test_torch_mono_inertial.py (320x240), whose frames after the IMU
+   init are inertial fused frames of a monocular frame: 1 fetch and 2
+   top-k launches each (on 24a's frames every frame after the init makes
+   a keyframe, and F8 keeps such frames stepwise); (b) the first inertial window after 25a's IMU init
+   solved again on the CPU from the same inputs, in float32 (P5): the
+   states within phase 14's tolerance.
 
 Phase 3 also times torch._int_mm of the +-1 descriptors at the matrix
 kernel's four shapes: the int8 product the kernel computes in its body
@@ -212,8 +228,9 @@ same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
 
 The line before the last two is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Each kernel's `launches` is what the
-twenty-one paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
-20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a and 24b's card run) launched, counted from 0 at each path's start (phase 19b launches
+twenty-three paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
+20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a, 24b's card run and 25a's
+two) launched, counted from 0 at each path's start (phase 19b launches
 neither); `launches_relocalization` and `launches_loop_closing` are the
 part of phases 17-18 that relocalization and the loop closer made, and
 `launches_merge` the part of phases 20a and 20b that `_merge_maps` made
@@ -321,10 +338,11 @@ N_INERTIAL_FRAMES = 160         # phase 13: 8 s, IMU init at ~2 s, the 5 s full-
 N_REPLAY_FRAMES = 3             # phase 14: inertial fused frames replayed on the CPU
 # Phases 15 and 16 run the host extractor, whose NumPy pyramid takes ~2 s a
 # frame on the card's host; phase 15 is cut from 40 frames to 24, then to 12
-# (medians over the last 10) to make room for phases 22-23, so that the
-# whole run stays inside its time limit
+# (medians over the last 10) to make room for phases 22-23, and phase 16
+# from 60 frames to 50 (9 after its IMU init) to make room for phase 25, so
+# that the whole run stays inside its time limit
 N_TOGGLE_FRAMES = 12            # phase 15: of phase 8's sequence, per configuration
-N_HOST_INERTIAL_FRAMES = 60     # phase 16: of phase 13's sequence (IMU init at frame 40)
+N_HOST_INERTIAL_FRAMES = 50     # phase 16: of phase 13's sequence (IMU init at frame 40)
 # Phase 16's ATE over all its frames. Before IMU init the host extractor's map
 # lets a local BA pull the keyframes by centimetres, in the JAX package as in
 # the port (ROADMAP F15). tools/host_route_drift.py on the card's host CPU read
@@ -426,6 +444,16 @@ N_MONO_FRAMES = 60
 N_MONO_CPU_FRAMES = 8           # phase 24b: of phase 24a's frames
 MONO_JAX = {"init_frame": 2, "frames_ok": 48, "first_loss": 50, "ate_m": 0.02579}
 MONO_INIT_SLACK, MONO_OK_SLACK, MONO_ATE_FACTOR = 1, 3, 2.0
+# Phase 25: the monocular-inertial System (M9c) over 24a's frames with their
+# IMU stream, on to the frame of its first scale refinement (at most
+# N_MI_FRAMES of phase 10's sequence). The gates are the renderer's truth
+# from the IMU init's frame on (the JAX package loses track right after its
+# init on the same scene: ROADMAP F35). After the init the reference ratio
+# is 0.75 above 350 inliers (F38): with the monocular 0.9 every frame after
+# the init made a keyframe here, and none was fused.
+N_MI_FRAMES = 70
+MI_SCALE_TOL = 0.05             # the Sim(3) scale of the frames from the IMU init on
+MI_ATE_LIMIT_M = 0.02           # their SE(3) ATE (an H100 read 0.0091 m over 16 frames)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -966,7 +994,7 @@ def tracker_step(tracker, frame, entry=None, imu=None, mono=False) -> dict:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     if mono:
-        entry.track_monocular(frame.left, frame.timestamp)
+        entry.track_monocular(frame.left, frame.timestamp, imu=imu)
     elif imu is None:
         (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
     else:
@@ -1385,12 +1413,14 @@ def imu_between(seq, t0, t1):
     return [(float(seq.imu_t[i]), seq.imu_acc[i], seq.imu_gyro[i]) for i in sel]
 
 
-def record_inertial_programs():
+def record_inertial_programs(keep_flipped=False):
     """Wraps the tracker's tlm_step_vi and the mapper's local_inertial_ba:
     the first N_REPLAY_FRAMES calls of the one and the first call of the
-    other are kept with their inputs and outputs for phase 14. Returns the
-    record and a function that puts both back."""
-    rec = {"tlm_step_vi": [], "local_inertial_ba": []}
+    other are kept with their inputs and outputs for phases 14 and 25b;
+    with `keep_flipped`, also the first later window that rejected a
+    flipped step (its count fetched once more until one is found). Returns
+    the record and a function that puts both back."""
+    rec = {"tlm_step_vi": [], "local_inertial_ba": [], "flipped": []}
     inner_tlm, inner_ba = tracking.tlm_step_vi, local_mapping.local_inertial_ba
 
     def tlm_step_vi(*args):
@@ -1399,10 +1429,12 @@ def record_inertial_programs():
             rec["tlm_step_vi"].append((args, out))
         return out
 
-    def local_ba(*args):
-        out = inner_ba(*args)
+    def local_ba(*args, **kw):
+        out = inner_ba(*args, **kw)
         if not rec["local_inertial_ba"]:
-            rec["local_inertial_ba"].append((args, out))
+            rec["local_inertial_ba"].append((args, out, kw))
+        elif keep_flipped and not rec["flipped"] and int(out.n_flipped):
+            rec["flipped"].append((args, out, kw))
         return out
 
     tracking.tlm_step_vi, local_mapping.local_inertial_ba = tlm_step_vi, local_ba
@@ -1596,7 +1628,7 @@ def phase_inertial_card_vs_cpu(rec):
         frames.append(row)
         check(all(same.values()) and state_close(d) and H_rel < 1e-2,
               f"tlm_step_vi card against CPU, recorded frame {i}: {row}")
-    (args, card), = rec["local_inertial_ba"]
+    (args, card, kw), = rec["local_inertial_ba"]
     prob = args[0]
     dtype = prob.points.dtype
     windows = {}
@@ -1606,8 +1638,8 @@ def phase_inertial_card_vs_cpu(rec):
         (str(other).split(".")[-1], None, (with_float(prob, other),) + tuple(args[1:])),
     ):
         if card_res is None:
-            card_res = local_inertial_ba(*a)
-        host = local_inertial_ba(*to_device(a, cpu))
+            card_res = local_inertial_ba(*a, **kw)
+        host = local_inertial_ba(*to_device(a, cpu), **kw)
         d = state_diffs(card_res.states, host.states)
         free = prob.point_free.to(cpu)
         windows[name] = {
@@ -3024,6 +3056,155 @@ def phase_mono_card_vs_cpu(device, seq, card, init_inputs):
     return launches
 
 
+def phase_mono_inertial_system(device, seq, card):
+    """The monocular-inertial System (M9c) in its default configuration on
+    the card: the two-view init, the IMU init that gives the map its metric
+    scale, the scale refinements, the inertial fused frames; the gates from
+    the renderer's truth after the IMU init."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    settings = dataclasses.replace(mono_settings(seq, device), imu_frequency=200.0,
+                                   T_b_c1=np.eye(4))
+    system = System(settings, Sensor.IMU_MONOCULAR, device=device)
+    check(system.tracker.monocular and system.tracker.use_imu
+          and system.loop_closer.fix_scale is True,
+          "phase 25a: not a monocular-inertial System with a fixed-scale loop closer")
+    keyframes, lc_rows = [], []
+    watch_mapper(system, keyframes)
+    watch_loop_closer(system.loop_closer, lc_rows)
+    rec, restore_rec = record_inertial_programs(keep_flipped=True)
+    stages, restore = watch_tracker_stages(TRACKER_STAGES + (INIT_STAGE,))
+    log, t_prev = [], -1.0
+    series = system.stats.series
+    try:
+        for f in seq.frames[:N_MI_FRAMES]:
+            if series["lm_scale_refinement_scale"]:
+                break       # cut for the run's time: the frames after the first refinement
+            before = stage_snapshot(stages)
+            n_kf = len(keyframes)
+            r = tracker_step(system.tracker, f, entry=system, mono=True,
+                             imu=imu_between(seq, t_prev, f.timestamp))
+            r["mapped"] = keyframes[n_kf:]
+            r["stages"] = stage_delta(stage_snapshot(stages), before)
+            r["imu_initialized"] = bool(system.atlas.current.imu_initialized)
+            log.append(r)
+            t_prev = f.timestamp
+    finally:
+        restore()
+        restore_rec()
+    system.shutdown()
+
+    states = [r["state"] for r in log]
+    state_str = "".join(s[0] for s in states)
+    check("OK" in states, f"phase 25a: never initialized: {state_str}")
+    init = states.index("OK")
+    check(any(r["imu_initialized"] for r in log), f"phase 25a: the IMU never initialized: {state_str}")
+    imu_init = next(i for i, r in enumerate(log) if r["imu_initialized"])
+    refined = series["lm_scale_refinement_scale"]
+    check(len(refined) >= 1, "phase 25a: no scale refinement")
+    after = log[imu_init:]
+    check(all(r["state"] == "OK" for r in after),
+          f"phase 25a: a frame from the IMU init (frame {imu_init}) on is not OK: {state_str}")
+    for i, r in enumerate(log):
+        if r["R"] is not None:
+            check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"phase 25a frame {i}: pose")
+        if r["path"] == "fused":
+            check(r["imu_initialized"], f"phase 25a frame {i}: fused before the IMU init")
+            check(r["fetches"] == 1, f"phase 25a frame {i}: {r['fetches']} tracker fetches, fused")
+    fused_at = [imu_init + j for j, r in enumerate(after) if r["path"] == "fused"]
+    fused = [log[i] for i in fused_at]
+    check(len(fused) >= 1, "phase 25a: no inertial fused frame after the IMU init")
+    for r in fused:
+        mapper_topk = sum(k["topk"] for k in r["mapped"])
+        check(r["launches"] - mapper_topk == 2 and r["launches_k2"] == 0,
+              f"phase 25a: a fused frame took {r['launches'] - mapper_topk} tracker top-k "
+              f"launches, not 2")
+    t_imu = seq.frames[imu_init].timestamp
+    part = [e for e in system.tracker.trajectory if e[0] >= t_imu]
+    sim3 = sim3_ate(part, seq)
+    se3 = trajectory_ate(part, seq)
+    check(sim3 is not None and abs(sim3["scale"] - 1.0) <= MI_SCALE_TOL,
+          f"phase 25a: Sim(3) scale from the IMU init on {None if sim3 is None else sim3['scale']}")
+    check(se3["rmse"] <= MI_ATE_LIMIT_M,
+          f"phase 25a: SE(3) ATE from the IMU init on {se3['rmse']:.4f} m, limit {MI_ATE_LIMIT_M} m")
+    check(kern.launches > 0 and matrix.launches > 0, "phase 25a: a kernel was not launched")
+    check(rec["local_inertial_ba"], "phase 25a recorded no inertial window")
+
+    def ms(rows):
+        v = [r["ms"] for r in rows]
+        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
+
+    times = {"stepwise, no keyframe": ms([r for r in log[init + 1:] if r["path"] == "stepwise"
+                                           and not r["mapped"]]),
+             "fused inertial, no keyframe": ms([r for r in fused if not r["mapped"]]),
+             "keyframe": ms([r for r in log[init + 1:] if r["mapped"]])}
+    by_stage = {name: [sum(r["stages"][name][j] for r in log) for j in (0, 1)] for name in stages}
+    mapper = {"triangulation (10240 rows)": sum(k["topk_epi_rows"] for k in keyframes),
+              "mapper top-k all": sum(k["topk"] for k in keyframes),
+              "fusion (matrix)": sum(k["matrix"] for k in keyframes)}
+    closer = {k: sum(r[k] for r in lc_rows) for k in ("k1", "k2", "matrix")}
+    gt = np.asarray(seq.gt_pos[imu_init:len(log)])
+    rms_motion = float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean()))
+    m = system.atlas.current
+    print(
+        f"phase 25a monocular-inertial System, default configuration: {len(log)} frames of phase "
+        f"10's {W}x{H} sequence with their 200 Hz IMU stream through "
+        f"System(Sensor.IMU_MONOCULAR).track_monocular(..., imu=...) on {card}: states "
+        f"{state_str}; two-view init at frame {init}, IMU init at frame {imu_init} with scale "
+        f"{series['lm_imu_init_scale'][0]:.4f}; scale refinements {len(refined)} solving "
+        f"{[round(x, 5) for x in refined]}, applied {int(sum(series['lm_scale_applied']))}; from "
+        f"the IMU init on {sum(r['state'] == 'OK' for r in after)} of {len(after)} frames OK, Sim(3) "
+        f"scale {sim3['scale']:.4f} (1.0 is right) over {sim3['n']} frames, SE(3) ATE RMSE "
+        f"{se3['rmse']:.4f} m (limit {MI_ATE_LIMIT_M}) beside their RMS motion {rms_motion:.4f} m; "
+        f"keyframes {m.n_keyframes()} ({len(keyframes)} processed), map points {m.n_mappoints()}; "
+        f"ms/frame median, p90 (count) after the two-view init: "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; {len(fused)} fused inertial frames (frames {fused_at}), "
+        f"fetches per fused frame {sum(r['fetches'] for r in fused) / len(fused):.3f}, tracker "
+        f"top-k launches 2 each; lm_imu_init ms "
+        f"{[round(x, 1) for x in series['lm_imu_init'][-1:]]} (the call that initialized), "
+        f"lm_scale_refinement ms {[round(x, 1) for x in series['lm_scale_refinement']]}; inertial "
+        f"windows {int(sum(series['lm_inertial_bas']))} with "
+        f"{int(sum(series['lm_inertial_steps_flipped']))} steps rejected behind the cameras, visual "
+        f"local BAs {int(sum(series['lm_local_bas']))} with {int(sum(series['lm_ba_steps_rejected']))}; "
+        f"top-k launches {kern.launches} ({dict(kern.launches_by_k)} by K), by stage: tracker "
+        f"{by_stage}, mapper {mapper}, loop closer {closer} over {len(lc_rows)} keyframes; matrix "
+        f"launches {matrix.launches}"
+    )
+    return kern.launches, matrix.launches, rec
+
+
+def phase_mono_inertial_card_vs_cpu(rec, card):
+    """25a's first inertial window after the IMU init, and the first in
+    which the card rejected a step that moved a live observation behind its
+    camera, solved again on the CPU from the same inputs, in float32 as the
+    mapper solves it (P5): the states within phase 14's tolerance and the
+    same count of rejected steps."""
+    cpu = torch.device("cpu")
+    windows = [("the first window after the IMU init", rec["local_inertial_ba"][0])]
+    windows += [("the first with a flipped step", w) for w in rec["flipped"]]
+    rows = []
+    for name, (args, card_res, kw) in windows:
+        prob = args[0]
+        host = local_inertial_ba(*to_device(args, cpu), **kw)
+        d = state_diffs(card_res.states, host.states)
+        free = prob.point_free.to(cpu)
+        pts = float((card_res.points.to(cpu).double() - host.points.double()).abs()[free].max())
+        flipped = (int(card_res.n_flipped), int(host.n_flipped))
+        check(prob.points.dtype == torch.float32 and state_close(d),
+              f"phase 25b: {name} card against CPU: {d}")
+        check(flipped[0] == flipped[1], f"phase 25b: {name}: flipped steps card, CPU {flipped}")
+        rows.append(
+            f"{name} ({int(prob.state_free.sum())} free states, {int(free.sum())} points, "
+            f"{int(prob.mask.sum())} observations, mono edges only: "
+            f"{bool((prob.obs_ur < 0).all())}): states max diff {json.dumps(d)}, points "
+            f"{pts:.2e}, inlier masks differ on "
+            f"{int((card_res.inlier_mask.to(cpu) != host.inlier_mask).sum())}, flipped steps "
+            f"{flipped[0]} on both")
+    print(f"phase 25b monocular-inertial windows card against CPU ({card}), in float32 on both: "
+          + "; ".join(rows) + ("" if rec["flipped"] else "; no window of 25a flipped a step"))
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -3059,7 +3240,7 @@ def main():
 
 def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, radtan_seq,
                kb8_seq):
-    """Phases 2-23, then the kernels line and the last lines; the arguments
+    """Phases 2-25, then the kernels line and the last lines; the arguments
     after `t_start` are the futures of the rendered sequences."""
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
@@ -3167,6 +3348,13 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     mono_cpu_launches, mono_cpu_matrix = phase_mono_card_vs_cpu(device, seq, card, init_inputs)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 24")
 
+    # 25. the monocular-inertial System (a: default configuration; b: its first
+    # inertial window and its first with a flipped step, card against CPU)
+    mi_launches, mi_matrix, mi_rec = phase_mono_inertial_system(device, seq, card)
+    phase_mono_inertial_card_vs_cpu(mi_rec, card)
+    del mi_rec
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 25")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -3183,7 +3371,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + map_launches["topk"] + loop_all + inertial_loop["topk"] + merge_all["topk"]
             + merge_sys_all + threads_lc["topk"] + async_i_launches + rect_launches
             + resize_launches + fish_launches + fish_cpu_launches + mono_launches
-            + mono_cpu_launches,
+            + mono_cpu_launches + mi_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -3216,6 +3404,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             # phase 24: the monocular System (a), its first frames on the card (b)
             "launches_monocular": mono_launches,
             "launches_monocular_card_vs_cpu": mono_cpu_launches,
+            # phase 25a: the monocular-inertial System
+            "launches_monocular_inertial": mi_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -3259,7 +3449,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
             + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix
             + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix + mono_matrix
-            + mono_cpu_matrix,
+            + mono_cpu_matrix + mi_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -3285,6 +3475,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             "launches_fisheye_visual": fish_cpu_matrix,
             "launches_monocular": mono_matrix,
             "launches_monocular_card_vs_cpu": mono_cpu_matrix,
+            "launches_monocular_inertial": mi_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -3314,7 +3505,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
           "a kernel was not launched on the paths of phases 22-23")
     check(mono_launches > 0 and mono_matrix > 0 and mono_cpu_launches > 0,
           "a kernel was not launched on the paths of phase 24")
-    print(f"chip_smoke: all 24 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(mi_launches > 0 and mi_matrix > 0,
+          "a kernel was not launched on the paths of phase 25")
+    print(f"chip_smoke: all 25 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

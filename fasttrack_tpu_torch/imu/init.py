@@ -1,7 +1,9 @@
 """IMU initialization: gyro bias, gravity direction, scale, velocities.
 
-Port of fasttrack_tpu/imu/init.py, a copy (host NumPy float64; the
-monocular scale term comes with its caller, ROADMAP M9).
+Port of fasttrack_tpu/imu/init.py, a copy (host NumPy float64). With
+`mono_scale` the positions take the unknown scale, so the velocities it
+solves are metric (the monocular-inertial mapper's IMU init and scale
+refinement call it so).
 
 Parity target: LocalMapping::InitializeIMU (LocalMapping.cc:1173) +
 Optimizer::InertialOptimization (Optimizer.cc:3042-3497). The reference

@@ -34,9 +34,17 @@ closer's post-loop global BA of an IMU-initialized map is this mapper's
 
 A visual monocular map (`monocular=True`) runs the same steps: its only
 new points are the epipolar triangulation's, since its keyframes carry no
-depth, and its adjustments have mono edges only. Left out, each raising
-NotImplementedError with its ROADMAP item: a monocular map with an IMU,
-with its scale refinement (M9c), and `mesh` (M10).
+depth, and its adjustments have mono edges only. With an IMU as well (a
+monocular-inertial map) the IMU init also solves the map's scale and
+applies it with the gravity rotation; the velocities it solves are metric
+and are not scaled again (ROADMAP F34); every 10th keyframe after it,
+until the second full inertial BA stage, the scale and gravity are solved
+again over the last 64 keyframes and applied when the scale moves by more
+than 0.2% (`_scale_refinement`). After either rescale the points' normals
+and distances and the tracker's saved frames follow the map (F36, F37),
+and its inertial windows reject a step that moves a live observation
+behind its camera (F24). Left out, raising NotImplementedError with its
+ROADMAP item: `mesh` (M10).
 """
 
 from __future__ import annotations
@@ -121,10 +129,6 @@ class LocalMapper:
                  imu_calib=None, tracker=None, monocular: bool = False,
                  mesh=None, stats: Stats | None = None,
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
-        if monocular and imu_calib is not None:
-            raise NotImplementedError(
-                "monocular-inertial mapping is not ported yet (ROADMAP M9c)"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "bundle adjustment sharded over a device mesh is not ported yet (ROADMAP M10)"
@@ -142,6 +146,7 @@ class LocalMapper:
         self.imu_calib = imu_calib          # enables the inertial back-end
         self.imu_init_kfs = 6               # KFs needed before InitializeIMU
         self.imu_init_time = None           # timestamp of InitializeIMU
+        self._scale_kf_counter = 0          # keyframes since, for ScaleRefinement
         if imu_calib is not None:
             self._R_bc, self._t_bc = imu_calib.extrinsic_np()       # host, float64
             self._Rbc_dev = imu_calib.R_bc.to(self.device)
@@ -221,8 +226,8 @@ class LocalMapper:
             self._timed("lm_imu_init", self._try_initialize_imu, kf)
         elif inertial and self.imu_init_time is not None:
             # VIBA staging (LocalMapping.cc:181-242): full-map inertial BA
-            # ~5 s and ~15 s after initialization refines gravity and bias
-            # once more motion has accumulated.
+            # ~5 s and ~15 s after initialization refines scale, gravity and
+            # bias once more motion has accumulated.
             dt = kf.timestamp - self.imu_init_time
             if not m.iniertial_ba1 and dt > 5.0:
                 self._timed("lm_full_inertial_ba", self._full_inertial_ba, kf)
@@ -230,6 +235,12 @@ class LocalMapper:
             elif m.iniertial_ba1 and not m.iniertial_ba2 and dt > 15.0:
                 self._timed("lm_full_inertial_ba", self._full_inertial_ba, kf)
                 m.iniertial_ba2 = True
+            elif self.monocular and not m.iniertial_ba2:
+                # a monocular map's scale is refined on every 10th keyframe
+                # that reaches this branch, until the second stage fixes it
+                self._scale_kf_counter += 1
+                if self._scale_kf_counter % 10 == 0:
+                    self._timed("lm_scale_refinement", self._scale_refinement, kf)
         self.stats.record_count("lm_keyframes", 1)
         self.stats.record("lm_total", (time.perf_counter() - t0) * 1e3)
         if self.loop_closer is not None and kf.kid in m.keyframes:
@@ -598,22 +609,34 @@ class LocalMapper:
             if i > 0:
                 preints.append(k.preintegrated)
         # First init: acc bias pinned to zero, as the JAX package does it.
-        # ORB-SLAM3's priorA=1e10 at its first InitializeIMU call is the
-        # monocular branch; for stereo it uses priorA=1e5, a strong but
-        # finite prior (LocalMapping.cc:181; ROADMAP F11). Kept for parity:
-        # over a 2 s window ba is nearly degenerate with gravity's direction.
-        res = initialize_imu(R_wb, p_w, preints, mono_scale=False, estimate_ba=False)
+        # That is ORB-SLAM3's monocular branch (priorA=1e10 at its first
+        # InitializeIMU call, LocalMapping.cc:181), which a monocular map
+        # takes; for stereo the reference uses priorA=1e5, a strong but
+        # finite prior (ROADMAP F11), kept so for parity: over a 2 s window
+        # ba is nearly degenerate with gravity's direction. A monocular map
+        # also solves its scale.
+        res = initialize_imu(R_wb, p_w, preints, mono_scale=self.monocular,
+                             estimate_ba=False)
         if not res.success:
             return
-        # Align gravity: world' = R_gw * world (stereo: no scale).
-        m.apply_scaled_rotation(res.R_gw, 1.0)
+        # Align gravity (and the scale): world' = s * R_gw * world.
+        scale = res.scale if self.monocular else 1.0
+        # a monocular map's points turn and scale their normals and
+        # distances with it (ROADMAP F36)
+        m.apply_scaled_rotation(res.R_gw, scale, move_normals=self.monocular)
+        if self.monocular:
+            self._move_tracker_frames(m, res.R_gw, scale)
         for i, k in enumerate(chain):
+            # the solved velocities are metric already: the scale sits on
+            # the visual positions (ROADMAP F34; the JAX package scales them
+            # again)
             k.velocity = res.R_gw @ res.velocities[i]
             k.imu_bias = (res.bg.copy(), res.ba.copy())
         m.imu_initialized = True
         self.imu_init_time = kf.timestamp
         m.info_changed()
         self.stats.record_count("lm_imu_inits", 1)
+        self.stats.record("lm_imu_init_scale", scale)
         t = self._sync_tracker_anchor(chain[-1], (res.bg.copy(), res.ba.copy()))
         if t is not None:
             # The running since-KF preintegration is kept: its bias
@@ -624,10 +647,41 @@ class LocalMapper:
         self._local_inertial_ba(kf)
 
     def _scale_refinement(self, kf: KeyFrame):
-        raise NotImplementedError(
-            "the monocular scale refinement (LocalMapping::ScaleRefinement) is not "
-            "ported yet (ROADMAP M9c)"
-        )
+        """LocalMapping::ScaleRefinement (LocalMapping.cc:1429): re-estimate
+        a monocular map's scale (and gravity direction) in closed form over
+        the recent temporal chain; apply them only when the correction is
+        non-trivial (|s - 1| > 0.002, the reference's gate). Velocities are
+        in map units here, so they take the scale."""
+        m = self.atlas.current
+        chain = self._temporal_chain(kf, max_len=64)
+        chain = [k for i, k in enumerate(chain) if i == 0 or k.preintegrated is not None]
+        if len(chain) < self.imu_init_kfs:
+            return
+        R_wb, p_w, preints = [], [], []
+        for i, k in enumerate(chain):
+            Rb, pb = _body_from_cam_np(k.R_cw, k.t_cw, self._R_bc, self._t_bc)
+            R_wb.append(Rb)
+            p_w.append(pb)
+            if i > 0:
+                preints.append(k.preintegrated)
+        res = initialize_imu(R_wb, p_w, preints, mono_scale=True)
+        # every solve's scale, and whether it was applied
+        self.stats.record("lm_scale_refinement_scale", res.scale if res.success else np.nan)
+        applied = res.success and abs(res.scale - 1.0) > 0.002
+        self.stats.record_count("lm_scale_applied", int(applied))
+        if not applied:
+            return
+        m.apply_scaled_rotation(res.R_gw, res.scale, scale_velocities=True, move_normals=True)
+        self._move_tracker_frames(m, res.R_gw, res.scale)
+        self._sync_tracker_anchor(chain[-1])
+        m.info_changed()
+
+    def _move_tracker_frames(self, m, R_gw, scale):
+        """The tracker's frames of this map into the world a monocular
+        map's new scale and gravity direction put it in (ROADMAP F37)."""
+        if self.tracker is not None and m.keyframes:
+            since = min(k.timestamp for k in m.keyframes.values())
+            self.tracker.transform_trajectory(R_gw, scale, since)
 
     def _local_inertial_ba(self, kf: KeyFrame, window: int = 8):
         """Optimizer::LocalInertialBA (Optimizer.cc:2383): temporal window of
@@ -821,9 +875,13 @@ class LocalMapper:
             obs_uv=obs_uv.astype(f32), obs_ur=obs_ur.astype(f32),
             inv_sigma2=inv_s2.astype(f32), mask=mask,
         ), device=self.device, dtype=INERTIAL_SOLVE_DTYPE)
-        res = local_inertial_ba(prob, self.camera, self._bf_dev, self._Rbc_dev, self._tbc_dev)
-        R_new, p_new, v_new, bg_new, ba_new, pts_new = (
-            a.astype(np.float64) for a in device_fetch(*res.states, res.points))
+        res = local_inertial_ba(prob, self.camera, self._bf_dev, self._Rbc_dev, self._tbc_dev,
+                                mono_edges_only=self.monocular)
+        *fetched, n_flipped = device_fetch(*res.states, res.points, res.n_flipped)
+        R_new, p_new, v_new, bg_new, ba_new, pts_new = (a.astype(np.float64) for a in fetched)
+        # steps that would have moved a live observation behind its camera
+        # (rejected in a monocular map's window, ROADMAP F24)
+        self.stats.record_count("lm_inertial_steps_flipped", int(n_flipped))
         self.stats.record_count("lm_device_fetches", 1)
         self.stats.record_count("lm_inertial_bas", 1)
 

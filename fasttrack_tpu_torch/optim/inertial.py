@@ -561,6 +561,9 @@ class InertialBAResult(NamedTuple):
     states: BodyState
     points: torch.Tensor
     inlier_mask: torch.Tensor  # (L, K)
+    # steps the cost accepted that moved a live observation behind its
+    # camera (ROADMAP F24), counted on the device
+    n_flipped: torch.Tensor
 
 
 def local_inertial_ba(
@@ -570,6 +573,7 @@ def local_inertial_ba(
     R_bc: torch.Tensor,
     t_bc: torch.Tensor,
     iters: int = 8,
+    mono_edges_only: bool = False,
 ) -> InertialBAResult:
     """Temporal-window VI bundle adjustment with Schur-eliminated points.
 
@@ -578,7 +582,11 @@ def local_inertial_ba(
     - inertial residuals (K-1, 15) whitened by the preintegration covariance;
     - the Schur complement over the point blocks (L 3x3 inverses);
     - a damped solve of the reduced (K*15) system.
-    Computes in the floating type of the problem's points."""
+    Computes in the floating type of the problem's points.
+
+    A step that moves a live observation behind its camera is counted
+    (`n_flipped`); in a monocular map's window (`mono_edges_only`) it is
+    rejected, as its local BA rejects one (ROADMAP F24)."""
     K = prob.obs_uv.shape[1]
     dtype = prob.points.dtype
     dev = prob.points.device
@@ -621,12 +629,14 @@ def local_inertial_ba(
         return torch.where(pre_valid[:, None], r, 0.0), A, B
 
     def total_cost(states, pts, w):
-        rv, _, _ = vis_residuals(states, pts)
+        """The cost at fixed weights, and the camera-frame points."""
+        rv, Xc, _ = vis_residuals(states, pts)
         ri = inertial_residuals(states, False)
-        return _vis_cost(rv, w) + torch.sum(ri * ri)
+        return _vis_cost(rv, w) + torch.sum(ri * ri), Xc
 
     states, pts = prob.states, prob.points
     lam = torch.full((), 1e-3, dtype=dtype, device=dev)
+    n_flipped = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(iters):
         rv, Xc, R_cw = vis_residuals(states, pts)                       # (L, K, 3)
         chi2 = torch.sum(rv * rv, dim=-1) * prob.inv_sigma2
@@ -685,8 +695,14 @@ def local_inertial_ba(
         pts_new = pts + dp * free_p[:, None]
 
         c_old = _vis_cost(rv, w) + torch.sum(ri * ri)
-        c_new = total_cost(states_new, pts_new, w)
+        c_new, Xc_new = total_cost(states_new, pts_new, w)
         accept = c_new < c_old
+        # a pinhole point mirrored through the camera centre projects where
+        # it did, so the cost cannot see such a flip
+        flips = ((w > 0) & (Xc[..., 2] > 0) & (Xc_new[..., 2] <= 0)).any()
+        n_flipped = n_flipped + (accept & flips).to(n_flipped.dtype)
+        if mono_edges_only:
+            accept = accept & ~flips
         states = _select(accept, states_new, states)
         pts = torch.where(accept, pts_new, pts)
         lam = torch.where(accept, lam * 0.5, lam * 4.0)
@@ -694,4 +710,4 @@ def local_inertial_ba(
     rv, _, _ = vis_residuals(states, pts)
     chi2 = torch.sum(rv * rv, dim=-1) * prob.inv_sigma2
     inl = prob.mask & (chi2 <= delta2)
-    return InertialBAResult(states, pts, inl)
+    return InertialBAResult(states, pts, inl, n_flipped)

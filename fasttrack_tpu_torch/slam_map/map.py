@@ -330,10 +330,14 @@ class Map:
 
     # --- IMU init alignment (Map::ApplyScaledRotation) ----------------------
     def apply_scaled_rotation(self, R_gw: np.ndarray, scale: float,
-                              scale_velocities: bool = False):
+                              scale_velocities: bool = False, move_normals: bool = False):
         """Rotate the gravity direction into -z and rescale: for every KF
         pose Tcw = [Rcw, tcw]: Rcw' = Rcw R_gw^T, tcw' = s * tcw (translation
-        part), points X' = s * R_gw X."""
+        part), points X' = s * R_gw X. With `move_normals` the points'
+        viewing normals turn with the world and their scale-invariance
+        distances take the scale, what ORB-SLAM3's UpdateNormalAndDepth
+        after Map::ApplyScaledRotation gives in closed form; without it they
+        stay as the JAX package leaves them (ROADMAP F36)."""
         for kf in self.keyframes.values():
             kf.R_cw = kf.R_cw @ R_gw.T
             kf.t_cw = scale * kf.t_cw
@@ -341,4 +345,10 @@ class Map:
                 kf.velocity = scale * (R_gw @ kf.velocity)
         for mp in self.mappoints.values():
             mp.position = scale * (R_gw @ mp.position)
+        if move_normals:
+            st = self.store
+            st.normal[st.alive] = st.normal[st.alive] @ R_gw.T
+            st.min_dist[st.alive] *= scale
+            st.max_dist[st.alive] *= scale
+            st.touch()
         self.info_changed()

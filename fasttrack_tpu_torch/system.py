@@ -5,15 +5,17 @@ Port of fasttrack_tpu/system.py for `Sensor.STEREO` and `Sensor.IMU_STEREO`
 over the two rigs the reference's datasets ship: a pinhole pair (EuRoC),
 rectified at start-up when it is distorted, and a Kannala-Brandt-8
 fisheye pair (TUM-VI), which takes the fisheye route; and for
-`Sensor.MONOCULAR`, one pinhole camera. Mirrors the reference: the
-constructor builds Atlas/Tracking/LocalMapping, TrackStereo and
-TrackMonocular are the entry points, then Shutdown and the trajectory
-savers in TUM / EuRoC / KITTI formats (System.cc:590-1285).
+`Sensor.MONOCULAR` and `Sensor.IMU_MONOCULAR`, one pinhole camera.
+Mirrors the reference: the constructor builds Atlas/Tracking/LocalMapping,
+TrackStereo and TrackMonocular are the entry points, then Shutdown and the
+trajectory savers in TUM / EuRoC / KITTI formats (System.cc:590-1285).
 
 A monocular System initializes from two views and closes loops with the
 scale free (fix_scale=False, a Sim3 loop correction), as the JAX System
-does. Only stereo sensors are rectified, so a monocular camera's
-distortion coefficients are ignored, as in the JAX package (ROADMAP F30).
+does; with an IMU its map is metric once the IMU initializes, and its loop
+closer keeps the scale fixed. Only stereo sensors are rectified, so a
+monocular camera's distortion coefficients are ignored, with or without an
+IMU, as in the JAX package (ROADMAP F30).
 
 Start-up camera transforms, in the JAX package's order: input resize
 (Camera.newWidth / newHeight: the intrinsics scaled once, every frame
@@ -37,9 +39,9 @@ map the Sim3 solver and its refinement project through the pinhole K of
 camera 1's intrinsics, as in the JAX package (ROADMAP F21).
 
 Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: the monocular-inertial
-sensor (M9c), the RGB-D sensors with and without an IMU (M9d) and atlas
-save/load, inertial maps included (M9e).
+is asked for, never taking another path quietly: the RGB-D sensors with
+and without an IMU (M9d) and atlas save/load, inertial maps included
+(M9e).
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ class Sensor(enum.Enum):
 
 
 _STEREO_SENSORS = (Sensor.STEREO, Sensor.IMU_STEREO)
-_NOT_PORTED = {Sensor.IMU_MONOCULAR: "M9c", Sensor.RGBD: "M9d", Sensor.IMU_RGBD: "M9d"}
+_MONO_SENSORS = (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR)
+_NOT_PORTED = {Sensor.RGBD: "M9d", Sensor.IMU_RGBD: "M9d"}
 
 
 def _needs_rectification(settings: Settings, sensor: Sensor) -> bool:
@@ -195,7 +198,8 @@ class System:
                 self.atlas, self.vocabulary,
                 np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]),
                 scale_factor=settings.scale_factor,
-                # the scale is observed by a pair; a monocular map's is free (Sim3)
+                # the scale is observed by a pair or an IMU; a visual
+                # monocular map's is free (Sim3)
                 fix_scale=sensor is not Sensor.MONOCULAR,
                 run_async=async_mapping,
                 camera=settings.camera1,
@@ -205,7 +209,7 @@ class System:
             )
         # Inertial calibration (IMU::Calib, ImuTypes.h:46-126) from settings.
         self.imu_calib = None
-        if sensor is Sensor.IMU_STEREO:
+        if sensor in (Sensor.IMU_STEREO, Sensor.IMU_MONOCULAR):
             T_bc = settings.T_b_c1 if settings.T_b_c1 is not None else np.eye(4)
             T_bc = np.asarray(T_bc, np.float64)
             if self._rect is not None:
@@ -238,7 +242,7 @@ class System:
             run_async=async_mapping,
             loop_closer=self.loop_closer,
             imu_calib=self.imu_calib,
-            monocular=sensor is Sensor.MONOCULAR,
+            monocular=sensor in _MONO_SENSORS,
             stats=self.stats,
             device=self.device,
         )
@@ -247,7 +251,7 @@ class System:
             kernel_config=self.kcfg, stats=self.stats,
             local_mapper=self.local_mapper,
             th_depth_factor=settings.th_depth,
-            monocular=sensor is Sensor.MONOCULAR,
+            monocular=sensor in _MONO_SENSORS,
             imu_calib=self.imu_calib,
             stereo_rig=stereo_rig,
             device=self.device,
@@ -291,7 +295,7 @@ class System:
         raise RuntimeError("track_rgbd called on non-RGBD sensor config")
 
     def track_monocular(self, img, timestamp: float, imu=None):
-        if self.sensor is not Sensor.MONOCULAR:
+        if self.sensor not in _MONO_SENSORS:
             raise RuntimeError("track_monocular called on non-mono sensor config")
         if imu:
             self.tracker_grab_imu(imu)

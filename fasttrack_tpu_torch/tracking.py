@@ -56,8 +56,12 @@ frame, the level-0 search at radius 100 and ratio 0.9,
 optim.two_view.reconstruct_two_view, the map scaled to a median depth of
 1), creates no points itself afterwards (the mapper's epipolar
 triangulation does), and asks for keyframes at the reference ratio 0.9.
-The monocular-inertial tracker (M9c) and the RGB-D front end (M9d) raise
-NotImplementedError with their ROADMAP item.
+With an IMU (monocular-inertial) its preintegration restarts whenever the
+initializer sets or slides its reference frame, so the second keyframe of
+the init carries the reference-to-current preintegration (ROADMAP F33), and
+until the IMU is initialized it takes a keyframe every 0.25 s and no other
+(F35); after the init it tracks as the stereo-inertial tracker does. The
+RGB-D front end (M9d) raises NotImplementedError with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -207,10 +211,6 @@ class Tracker:
         stereo_rig=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if monocular and imu_calib is not None:
-            raise NotImplementedError(
-                "monocular-inertial tracking is not ported yet (ROADMAP M9c)"
-            )
         self.monocular = monocular
         self.device = resolve(device)
         # a KB8 pair's rig (cameras.stereo.StereoRig): the fisheye route
@@ -260,6 +260,7 @@ class Tracker:
         self.time_recently_lost = 5.0  # Tracking.cc:71
         self.localization_only = False  # System::ActivateLocalizationMode
         self.trajectory: list = []     # (timestamp, R_cw, t_cw)
+        self._frame_in_flight: Optional[TrackedFrame] = None  # tracked, not yet saved
 
         self._scale_factors = np.asarray(
             [orb_config.scale_factor**l for l in range(orb_config.n_levels)],
@@ -567,6 +568,9 @@ class Tracker:
         )
 
     _TLM_CAP = 4096  # fixed candidate capacity (one shape for tlm_step)
+    # Above this many inliers a monocular-inertial map's reference ratio is
+    # 0.75 (Tracking::NeedNewKeyFrame for IMU_MONOCULAR, ROADMAP F38)
+    MI_MANY_INLIERS = 350
 
     def _store_device(self, m):
         """Device-resident PointStore mirror (the reference's persistent
@@ -709,6 +713,7 @@ class Tracker:
 
             # ---- host bookkeeping
             frame = _frame_from_block(self.frame_id, timestamp, f32, packed)
+            self._frame_in_flight = frame
             inlB_kp = f32[8] > 0.5
             n_inlA = int(tail[21] if use_vi else tail[12])
             n_inlB = int(tail[22] if use_vi else tail[13])
@@ -758,12 +763,7 @@ class Tracker:
             self._post_track(frame, ok)
             self.stats.record("fused_host_post", (time.perf_counter() - t_fetched) * 1e3)
 
-        self.frame_id += 1
-        self.last_frame = frame
-        if frame.R_cw is not None:
-            self.trajectory.append(
-                (timestamp, frame.R_cw.copy(), frame.t_cw.copy())
-            )
+        self._finish_frame(frame)
         self.stats.record("tracking_total", (time.perf_counter() - t0) * 1e3)
         return (frame.R_cw, frame.t_cw) if frame.R_cw is not None else None
 
@@ -780,6 +780,7 @@ class Tracker:
 
     def _track_prepared(self, frame: TrackedFrame, t0: float):
         timestamp = frame.timestamp
+        self._frame_in_flight = frame
         # Timestamp-jump handling (Tracking.cc:1885-1912): a backwards jump
         # resets the active map; with an IMU a large forward gap starts a
         # fresh map in the Atlas (the integration across the gap is
@@ -805,10 +806,7 @@ class Tracker:
         else:
             self._track(frame)
 
-        self.frame_id += 1
-        self.last_frame = frame
-        if frame.R_cw is not None:
-            self.trajectory.append((timestamp, frame.R_cw.copy(), frame.t_cw.copy()))
+        self._finish_frame(frame)
         self.stats.record("tracking_total", (time.perf_counter() - t0) * 1e3)
         return (frame.R_cw, frame.t_cw) if frame.R_cw is not None else None
 
@@ -859,6 +857,7 @@ class Tracker:
         n_min = 100
         if self._init_reference is None or frame.valid.sum() < n_min:
             self._init_reference = frame if frame.valid.sum() >= n_min else None
+            self._restart_init_preintegration()
             self.state = TrackingState.NOT_INITIALIZED
             return
         ref = self._init_reference
@@ -880,6 +879,7 @@ class Tracker:
         self.stats.record_count("device_fetches", 1)
         if ok.sum() < n_min:
             self._init_reference = frame  # slide the reference forward
+            self._restart_init_preintegration()
             return
         i1 = np.where(ok)[0]
         i2 = idx[i1]
@@ -906,8 +906,17 @@ class Tracker:
         frame.R_cw = tv.R
         frame.t_cw = tv.t * scale
         m = self.atlas.current
+        pre_ref_to_cur = self.pre_from_kf
         kf1 = self._make_keyframe(ref)
         m.add_keyframe(kf1)
+        if self.use_imu:
+            # the initial keyframe starts the chain: no preintegration, and
+            # the current one takes the reference-to-current preintegration
+            # (CreateInitialMapMonocular, Tracking.cc:2583; ROADMAP F33: the
+            # JAX package hands it the empty one that kf1's creation left)
+            kf1.prev_kf_id = None
+            kf1.preintegrated = None
+            self.pre_from_kf = pre_ref_to_cur
         kf2 = self._make_keyframe(frame)
         m.add_keyframe(kf2)
         for k in np.where(good)[0]:
@@ -934,6 +943,41 @@ class Tracker:
             self.local_mapper.insert_keyframe(kf2)
         self._init_reference = None
         self.state = TrackingState.OK
+
+    def transform_trajectory(self, R_gw, scale: float, since: float):
+        """Put the frames tracked since `since` into the world the map was
+        just moved to (world' = scale * R_gw * world): the saved ones, the
+        frame in flight (an inline mapper rescales inside its keyframe
+        insertion, before the frame is saved) and the last frame, as
+        ORB-SLAM3's Tracking::UpdateFrameIMU moves mCurrentFrame and
+        mLastFrame. The JAX package leaves the saved trajectory of a
+        monocular-inertial map in the visual world up to its IMU init
+        (ROADMAP F37). The caller holds the map lock."""
+        for i, (ts, R_cw, t_cw) in enumerate(self.trajectory):
+            if ts >= since:
+                self.trajectory[i] = (ts, R_cw @ R_gw.T, scale * t_cw)
+        frames = {id(f): f for f in (self._frame_in_flight, self.last_frame) if f is not None}
+        for f in frames.values():
+            if f.R_cw is not None and f.timestamp >= since:
+                f.R_cw, f.t_cw = f.R_cw @ R_gw.T, scale * f.t_cw
+
+    def _finish_frame(self, frame: TrackedFrame):
+        """Save the frame's pose and make it the last frame under the map
+        lock, so that an asynchronous mapper's rescale moves the frame
+        either as the frame in flight or as a saved one, never between."""
+        with self.atlas.current.lock:
+            self.frame_id += 1
+            self.last_frame = frame
+            self._frame_in_flight = None
+            if frame.R_cw is not None:
+                self.trajectory.append((frame.timestamp, frame.R_cw.copy(), frame.t_cw.copy()))
+
+    def _restart_init_preintegration(self):
+        """The since-keyframe preintegration restarts whenever the monocular
+        initializer sets or slides its reference frame, so that it spans the
+        reference to the current frame (Tracking::MonocularInitialization)."""
+        if self.use_imu:
+            self.pre_from_kf = HostPreintegrated(self.bias[0], self.bias[1])
 
     def _make_keyframe(self, frame: TrackedFrame) -> KeyFrame:
         kf = KeyFrame(
@@ -1645,8 +1689,15 @@ class Tracker:
         # (Tracking.cc NeedNewKeyFrame inertial branch: >=0.25s pre-init).
         if self.use_imu and not m.imu_initialized:
             last_kf = m.keyframes.get(self.last_kf_id)
-            if last_kf is not None and frame.timestamp - last_kf.timestamp >= 0.25:
-                return True
+            due = last_kf is not None and frame.timestamp - last_kf.timestamp >= 0.25
+            if due or self.monocular:
+                # A monocular map takes no other keyframe before its IMU
+                # init, as the reference's inertial branch returns: keyframes
+                # a frame apart triangulate over baselines so short that the
+                # map's scale drifts ~2.5x across the 2 s chain the init fits
+                # with one scale (ROADMAP F35; the JAX package falls through
+                # to the ratio test for every sensor)
+                return due
         min_obs = 3 if m.n_keyframes() > 2 else 2
         ref_matches = kf.tracked_map_points(m.mappoints, min_obs)
         if ref_matches == 0:
@@ -1661,6 +1712,11 @@ class Tracker:
         need_insert_close = (close_tracked < 100) and (close_new > 70)
         # mono needs denser keyframes (reference thRefRatio=0.9 monocular)
         th_ref = 0.9 if self.monocular else (0.75 if m.n_keyframes() > 2 else 0.4)
+        if self.monocular and self.use_imu and self.n_inliers > self.MI_MANY_INLIERS:
+            # IMU_MONOCULAR's ratio once tracking is strong, after the IMU
+            # init (ROADMAP F38; the JAX package keeps 0.9, and a 752x480
+            # map then makes a keyframe of every frame after its init)
+            th_ref = 0.75
         c1a = self.frame_id >= self.last_kf_frame_id + self.max_frames
         c1b = self.frame_id >= self.last_kf_frame_id + self.min_frames
         c2 = (

@@ -46,6 +46,39 @@ the map); the packages are not changed for it, the tracker's
 initialization is wrapped from here:
 
     JAX_PLATFORMS=cpu python -c 'from rig_reading import mono_reading as r; r("jax")'
+
+`mono_inertial_reading("jax" | "torch", scene, repairs, extra)` reads the
+monocular-inertial System (`Sensor.IMU_MONOCULAR`, inline) on one of two
+scenes: "test" (tests/test_torch_mono_inertial.py's: 320x240, seed 3, 50
+frames, 512 features, 4 levels, no vocabulary) or "chip" (phase 25a's: the
+first 60 frames of phase 10's 752x480 sequence, 1024 features, 8 levels,
+the shipped vocabulary), both with the exact 200 Hz IMU stream. `repairs`
+names the port's recorded differences to have on, whatever the package
+(None: the package as it is): "f33" (the second init keyframe's
+preintegration), "f34" (metric init velocities), "f35" (the pre-init
+keyframe rule), "f36" (normals and distances moved with a rescale), "f38"
+(IMU_MONOCULAR's reference ratio, 0.75 above 350 inliers, after the init;
+the port only);
+`extra` adds candidates of ROADMAP F35 that neither package has: "c" (the
+full inertial BA at the init) and "d" (the last frame re-predicted from the
+new anchor, ORB-SLAM3's UpdateFrameIMU). The packages are not changed for it: every variant wraps a method from here. `device`
+runs the port on the card ("cuda") instead of the CPU. It prints a line per frame and
+one JSON object: the two-view and IMU init frames, the scale the init
+solved beside the Sim(3) scale of the keyframe chain it fit and the spread
+of that chain's local scales (candidate (a)), the Sim(3) scale and the
+SE(3) ATE of the frames after the init, the first frame lost after it,
+scale refinements, fused frames and keyframes:
+
+    JAX_PLATFORMS=cpu python -c 'from rig_reading import mono_inertial_reading as r; r("jax", "test", ("f33", "f34"))'
+
+`keyframe_rule_reading()` runs the port on the card over phase 25a's
+frames and on to frame 100 (of phase 10's sequence) without F38 and with
+it (ROADMAP F38); `inertial_window_reading()`
+records every inertial window of the port's run on the card over 25a's
+frames and solves each again on the CPU in float32 and in float64, from
+the same inputs: the flipped steps of each (ROADMAP F24, phase 25b):
+
+    python -c 'import rig_reading as r; r.keyframe_rule_reading(); r.inertial_window_reading()'
 """
 
 import argparse
@@ -371,6 +404,315 @@ def mono_reading(package, n_frames=N_MONO_FRAMES, hold=0):
         "ate_sim3": ate(traj), "ate_sim3_to_first_loss": ate([r for r in traj if r[0] < t_loss]),
         "rms_motion_m": float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean())),
         "seconds": time.perf_counter() - t0}), flush=True)
+
+
+MONO_INERTIAL_REPAIRS = ("f33", "f34", "f35", "f36", "f38")
+
+
+def _mono_inertial_variant(package, repairs, extra, mp):
+    """Wrap the package's methods so that exactly `repairs` (of
+    MONO_INERTIAL_REPAIRS) and the candidates in `extra` act; `mp(owner,
+    name, value)` sets an attribute and keeps the old one."""
+    if package == "jax":
+        from fasttrack_tpu import local_mapping as lm
+        from fasttrack_tpu import tracking as tr
+        from fasttrack_tpu.imu import init as init_mod
+        from fasttrack_tpu.imu.preintegration import HostPreintegrated
+        from fasttrack_tpu.slam_map import map as map_mod
+        solve_owner = init_mod
+    else:
+        from fasttrack_tpu_torch import local_mapping as lm
+        from fasttrack_tpu_torch import tracking as tr
+        from fasttrack_tpu_torch.imu.preintegration import HostPreintegrated
+        from fasttrack_tpu_torch.slam_map import map as map_mod
+        solve_owner = lm
+    has = set(MONO_INERTIAL_REPAIRS) if package == "torch" else set()
+    want = set(repairs)
+
+    if ("f33" in want) != ("f33" in has):
+        inner = tr.Tracker._monocular_initialization
+
+        def mono_init(self, frame):
+            ref, pre = self._init_reference, self.pre_from_kf
+            out = inner(self, frame)
+            m = self.atlas.current
+            if self.state.name == "OK" and self._init_reference is None and m.keyframes:
+                kf2 = m.keyframes[max(m.keyframes)]
+                kf2.preintegrated = pre.copy() if "f33" in want else HostPreintegrated(
+                    self.bias[0], self.bias[1])
+            elif "f33" in want and self._init_reference is not ref:
+                self.pre_from_kf = HostPreintegrated(self.bias[0], self.bias[1])
+            return out
+
+        mp(tr.Tracker, "_monocular_initialization", mono_init)
+    if ("f34" in want) != ("f34" in has):
+        solve = solve_owner.initialize_imu
+
+        def initialize_imu(*a, **kw):
+            res = solve(*a, **kw)
+            if kw.get("mono_scale") and kw.get("estimate_ba") is False and res.success:
+                f = 1.0 / res.scale if "f34" in want else res.scale
+                res = res._replace(velocities=res.velocities * f)
+            return res
+
+        mp(solve_owner, "initialize_imu", initialize_imu)
+    if ("f35" in want) != ("f35" in has):
+        need = tr.Tracker._need_new_keyframe
+
+        def need_new_keyframe(self, frame):
+            m = self.atlas.current
+            if not (self.use_imu and self.monocular and not m.imu_initialized):
+                return need(self, frame)
+            last = m.keyframes.get(getattr(self, "last_kf_id", None))
+            due = last is not None and frame.timestamp - last.timestamp >= 0.25
+            if due or "f35" in want:
+                return due
+            self.use_imu = False            # the ratio test the JAX package falls to
+            try:
+                return need(self, frame)
+            finally:
+                self.use_imu = True
+
+        mp(tr.Tracker, "_need_new_keyframe", need_new_keyframe)
+    if ("f36" in want) != ("f36" in has):
+        rotate = map_mod.Map.apply_scaled_rotation
+
+        def apply_scaled_rotation(self, R_gw, scale, scale_velocities=False, **_):
+            if "f36" not in want:                       # the port, without F36
+                return rotate(self, R_gw, scale, scale_velocities)
+            rotate(self, R_gw, scale, scale_velocities)  # the JAX package, with it
+            st = self.store
+            st.normal[st.alive] = st.normal[st.alive] @ R_gw.T
+            st.min_dist[st.alive] *= scale
+            st.max_dist[st.alive] *= scale
+
+        mp(map_mod.Map, "apply_scaled_rotation", apply_scaled_rotation)
+    if "f38" in want and package == "jax":
+        raise ValueError("F38 is read on the port only")
+    if "f38" not in want and package == "torch":
+        mp(tr.Tracker, "MI_MANY_INLIERS", 1 << 30)
+    if "c" in extra:
+        init_imu = lm.LocalMapper._try_initialize_imu
+
+        def try_initialize_imu(self, kf, *a, **kw):
+            if self.atlas.current.imu_initialized:
+                return init_imu(self, kf, *a, **kw)
+            self._local_inertial_ba = lambda k, *aa, **kk: self._full_inertial_ba(k)
+            try:
+                return init_imu(self, kf, *a, **kw)
+            finally:
+                del self._local_inertial_ba
+
+        mp(lm.LocalMapper, "_try_initialize_imu", try_initialize_imu)
+    if "d" in extra:
+        init_imu_d = lm.LocalMapper._try_initialize_imu
+
+        def try_initialize_imu_d(self, kf, *a, **kw):
+            was = self.atlas.current.imu_initialized
+            out = init_imu_d(self, kf, *a, **kw)
+            t = self.tracker
+            if (not was and self.atlas.current.imu_initialized and t is not None
+                    and t.last_kf_state is not None and t.pre_from_kf is not None
+                    and t.last_frame is not None):
+                R_wb, p_w, v_w = t._predict_state_imu()
+                t.last_frame.R_cw, t.last_frame.t_cw = t._cam_from_body(R_wb, p_w)
+                t.last_frame.v_w = v_w
+                t.velocity = None
+            return out
+
+        mp(lm.LocalMapper, "_try_initialize_imu", try_initialize_imu_d)
+    return lm
+
+
+def mono_inertial_reading(package, scene="test", repairs=None, extra=(), n_frames=None,
+                          device="cpu", seq=None):
+    """One package's monocular-inertial System over `scene` (or the
+    rendered `seq` of that scene) on the CPU, or the port on `device`, with
+    the recorded differences `repairs` on (None: the package as it is);
+    prints a line per frame and one JSON object."""
+    from fasttrack_tpu_torch.datasets import synthetic
+    from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
+
+    if scene == "test":
+        n_frames = n_frames or 50
+        h, w, seed, n_all, feats, levels, vocab = 240, 320, 3, n_frames, 512, 4, False
+    else:
+        n_frames = n_frames or N_MONO_FRAMES
+        h, w, seed, n_all, feats, levels, vocab = H, W, 0, N_SYSTEM_FRAMES, 1024, 8, None
+    repairs = tuple(MONO_INERTIAL_REPAIRS if package == "torch" else ()) if repairs is None \
+        else tuple(repairs)
+    if seq is None:
+        seq = synthetic.generate_sequence(n_frames=n_all, h=h, w=w, seed=seed)
+    undo = []
+
+    def mp(owner, name, value):
+        undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+
+    lm = _mono_inertial_variant(package, repairs, extra, mp)
+    chain_reading = {}
+    inner_init = lm.LocalMapper._try_initialize_imu
+
+    def read_chain(self, kf, *a, **kw):
+        if not self.atlas.current.imu_initialized and not chain_reading:
+            chain = self._temporal_chain(kf)
+            chain = [k for k in chain if k.kid == chain[0].kid or k.preintegrated is not None]
+            if len(chain) >= 6 and chain[-1].timestamp - chain[0].timestamp >= 2.0:
+                ts = np.asarray([k.timestamp for k in chain])
+                P = np.asarray([-k.R_cw.T @ k.t_cw for k in chain])
+                local = [absolute_trajectory_error(ts[j:j + 3], P[j:j + 3], seq.gt_t, seq.gt_pos,
+                                                   with_scale=True)["scale"]
+                         for j in range(len(chain) - 2)]
+                chain_reading.update(
+                    chain_keyframes=len(chain), chain_span_s=float(ts[-1] - ts[0]),
+                    chain_sim3_scale=absolute_trajectory_error(
+                        ts, P, seq.gt_t, seq.gt_pos, with_scale=True)["scale"],
+                    chain_local_scale_min=float(min(local)),
+                    chain_local_scale_max=float(max(local)),
+                    second_kf_dT=None if chain[1].preintegrated is None
+                    else float(chain[1].preintegrated.dT))
+        return inner_init(self, kf, *a, **kw)
+
+    mp(lm.LocalMapper, "_try_initialize_imu", read_chain)
+    solved = []
+    if package == "jax":
+        from fasttrack_tpu.imu import init as solve_owner
+    else:
+        solve_owner = lm
+    inner_solve = solve_owner.initialize_imu
+
+    def recorded_solve(*a, **kw):
+        res = inner_solve(*a, **kw)
+        if kw.get("mono_scale"):
+            solved.append(("init" if kw.get("estimate_ba") is False else "refinement",
+                           bool(res.success), float(res.scale)))
+        return res
+
+    mp(solve_owner, "initialize_imu", recorded_solve)
+    try:
+        if package == "jax":
+            from fasttrack_tpu.cameras import make_pinhole
+            from fasttrack_tpu.settings import Settings
+            from fasttrack_tpu.system import Sensor, System
+
+            cam, kw = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, w, h), {}
+        else:
+            from fasttrack_tpu_torch.cameras import make_pinhole
+            from fasttrack_tpu_torch.settings import Settings
+            from fasttrack_tpu_torch.system import Sensor, System
+
+            cam, kw = make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, w, h, device=device), \
+                {"device": device}
+        settings = Settings(camera1=cam, bf=0.0, width=w, height=h, n_features=feats,
+                            n_levels=levels, scale_factor=1.2, imu_frequency=200.0,
+                            T_b_c1=np.eye(4))
+        system = System(settings, Sensor.IMU_MONOCULAR, vocabulary=vocab, **kw)
+        tracker = system.tracker
+        states, imu_init, t_prev, n_fused = [], None, -1.0, 0
+        t0 = time.perf_counter()
+        for i, f in enumerate(seq.frames[:n_frames]):
+            sel = np.where((seq.imu_t > t_prev) & (seq.imu_t <= f.timestamp))[0]
+            system.track_monocular(f.left, f.timestamp, imu=[
+                (float(seq.imu_t[j]), seq.imu_acc[j], seq.imu_gyro[j]) for j in sel])
+            t_prev = f.timestamp
+            m = system.atlas.current
+            states.append(tracker.state.name)
+            if imu_init is None and m.imu_initialized:
+                imu_init = i
+            fused = sum(system.stats.series.get("fused_vi_frames", []))
+            print(f"frame {i} {states[-1]} keyframes {m.n_keyframes()} map points "
+                  f"{m.n_mappoints()} tracked {int((tracker.last_frame.mp_ids >= 0).sum())} "
+                  f"inliers {tracker.n_inliers}{' fused' if fused > n_fused else ''}"
+                  f"{' imu' if m.imu_initialized else ''}", flush=True)
+            n_fused = fused
+        system.shutdown()
+    finally:
+        for owner, name, value in reversed(undo):
+            setattr(owner, name, value)
+    traj = tracker.trajectory
+    ts = np.asarray([t for t, _, _ in traj])
+    ps = np.asarray([-R.T @ t for _, R, t in traj])
+    out = {"package": package, "scene": scene, "repairs": list(repairs), "extra": list(extra),
+           "frames": n_frames, "states": "".join(s[0] for s in states),
+           "init_frame": states.index("OK") if "OK" in states else None,
+           "imu_init_frame": imu_init, "solves": solved, **chain_reading}
+    if imu_init is not None:
+        after = ts >= seq.frames[imu_init].timestamp
+        if after.sum() >= 3:
+            a3 = absolute_trajectory_error(ts[after], ps[after], seq.gt_t, seq.gt_pos,
+                                           with_scale=True)
+            a6 = absolute_trajectory_error(ts[after], ps[after], seq.gt_t, seq.gt_pos)
+            gt = seq.gt_pos[imu_init:n_frames]
+            out.update(frames_after=int(after.sum()), sim3_scale_after=a3["scale"],
+                       se3_ate_after_m=a6["rmse"],
+                       rms_motion_after_m=float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean())))
+        out["first_loss_after_init"] = next(
+            (i for i in range(imu_init, len(states)) if states[i] != "OK"), None)
+    series = system.stats.series
+    out.update(keyframes=system.atlas.current.n_keyframes(),
+               keyframes_processed=len(series.get("lm_keyframes", [])),
+               map_points=system.atlas.current.n_mappoints(),
+               fused_inertial_frames=int(sum(series.get("fused_vi_frames", []))),
+               inertial_windows=int(sum(series.get("lm_inertial_bas", []))),
+               inertial_steps_flipped=int(sum(series.get("lm_inertial_steps_flipped", []))),
+               seconds=time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _chip_scene_sequence():
+    from fasttrack_tpu_torch.datasets import synthetic
+
+    return synthetic.generate_sequence(n_frames=N_SYSTEM_FRAMES, h=H, w=W, seed=0)
+
+
+def keyframe_rule_reading(seq=None):
+    """The port on the card over phase 10's 100 frames without F38 and with
+    it (ROADMAP F38)."""
+    seq = seq or _chip_scene_sequence()
+    base = tuple(r for r in MONO_INERTIAL_REPAIRS if r != "f38")
+    return [mono_inertial_reading("torch", "chip", repairs, (), N_SYSTEM_FRAMES, "cuda", seq)
+            for repairs in (base, MONO_INERTIAL_REPAIRS)]
+
+
+def inertial_window_reading(seq=None, n_frames=N_MONO_FRAMES):
+    """Every inertial window of the port's run on the card over phase 25a's
+    frames, solved again on the CPU from the same inputs in float32 (as the
+    mapper solves it) and in float64: the steps each rejects as flipped and
+    the largest state difference card against CPU in float32."""
+    import torch
+
+    from chip_smoke import state_diffs, to_device, with_float
+    from fasttrack_tpu_torch import local_mapping
+    from fasttrack_tpu_torch.optim.inertial import local_inertial_ba
+
+    seq = seq or _chip_scene_sequence()
+    windows, inner = [], local_mapping.local_inertial_ba
+
+    def record(*args, **kw):
+        out = inner(*args, **kw)
+        windows.append((args, out, kw))
+        return out
+
+    local_mapping.local_inertial_ba = record
+    try:
+        mono_inertial_reading("torch", "chip", None, (), n_frames, "cuda", seq)
+    finally:
+        local_mapping.local_inertial_ba = inner
+    cpu, rows = torch.device("cpu"), []
+    for i, (args, card, kw) in enumerate(windows):
+        host = local_inertial_ba(*to_device(args, cpu), **kw)
+        wide = local_inertial_ba(with_float(to_device(args, cpu)[0], torch.float64),
+                                 *to_device(args[1:], cpu), **kw)
+        d = state_diffs(card.states, host.states)
+        rows.append({"window": i, "flipped_card": int(card.n_flipped),
+                     "flipped_cpu_f32": int(host.n_flipped), "flipped_cpu_f64": int(wide.n_flipped),
+                     "observations": int(args[0].mask.sum()),
+                     "state_maxdiff_f32": max(d.values())})
+        print(json.dumps(rows[-1]), flush=True)
+    print(json.dumps({"windows": len(rows), **{k: sum(r[k] for r in rows) for k in (
+        "flipped_card", "flipped_cpu_f32", "flipped_cpu_f64")}}), flush=True)
+    return rows
 
 
 def main():

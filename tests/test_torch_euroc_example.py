@@ -24,8 +24,11 @@
 - `examples/torch_mono_euroc.py` (M9b) on the same layout with `--device
   cpu --gt`, beside the JAX package's `examples/mono_euroc.py` on the same
   files: it initializes, writes the trajectory files, and its Sim(3)
-  ATE is no worse than the JAX script's by more than 5 mm; `--imu` exits
-  with an error that names M9c.
+  ATE is no worse than the JAX script's by more than 5 mm; with `--imu`
+  (M9c) on the 70-frame layout with its IMU stream that the stereo script's
+  inertial gate renders: the IMU initializes, the trajectory and stats
+  files are written, and the SE(3) ATE is under twice the port's reading,
+  over all frames and over those after the IMU init.
 """
 
 import contextlib
@@ -46,6 +49,11 @@ from fasttrack_tpu_torch.settings import Settings, load_settings
 from tests.test_torch_host_kernels import jax_native_library
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+# examples/torch_mono_euroc.py --imu on the 70 frames (the port reads 0.129 m
+# over all of them, the visual map's scale drifting before the IMU init, and
+# 0.0131 m over the 26 from the init's frame on): twice the first reading,
+# 1.5 times the second
+MONO_IMU_ATE_LIMIT_M, MONO_IMU_ATE_AFTER_INIT_LIMIT_M = 0.26, 0.02
 EXAMPLES = os.path.join(ROOT, "examples")
 TOOLS = os.path.join(ROOT, "tools")
 
@@ -323,11 +331,18 @@ def test_example_exits_with_the_message_of_what_is_not_ported(rendered, tmp_path
 
 # ------------------------------------------------------------ the inertial gate
 @pytest.fixture(scope="module")
-def driven_imu(tmp_path_factory):
-    """70 rendered frames with their IMU stream through the port's script
-    with --imu: IMU init needs 6 keyframes over 2 s (40 frames at 20 Hz)."""
+def rendered_imu(tmp_path_factory):
+    """70 rendered frames with their IMU stream: IMU init needs 6 keyframes
+    over 2 s (40 frames at 20 Hz)."""
     root = str(tmp_path_factory.mktemp("seq_imu"))
     run_script(os.path.join(TOOLS, "render_euroc_synthetic.py"), [root, "--frames", "70"])
+    return root
+
+
+@pytest.fixture(scope="module")
+def driven_imu(rendered_imu, tmp_path_factory):
+    """The port's stereo script with --imu on the 70 frames."""
+    root = rendered_imu
     out = str(tmp_path_factory.mktemp("out_imu"))
     with one_torch_thread():
         run_script(os.path.join(EXAMPLES, "torch_stereo_euroc.py"), [
@@ -399,10 +414,22 @@ def test_mono_example_ate_no_worse_than_the_jax_example(driven_mono):
     assert got["ate_rmse"] <= want["ate_rmse"] + 0.005, (got, want)
 
 
-def test_mono_example_with_imu_exits_naming_m9c(rendered, tmp_path):
-    with pytest.raises(SystemExit) as e:
+def test_mono_example_with_imu_initializes_and_passes_the_ate_gate(rendered_imu, tmp_path):
+    """--imu (M9c): the monocular-inertial System on the 70 rendered frames
+    and their IMU csv; its map is metric after the IMU init, so the ATE is
+    taken after an SE(3) alignment, as the JAX example takes it."""
+    out = tmp_path / "o"
+    with one_torch_thread():
         run_script(os.path.join(EXAMPLES, "torch_mono_euroc.py"), [
-            os.path.join(rendered, "settings.yaml"), rendered, "--imu",
-            "--out", str(tmp_path / "o"), "--device", "cpu"])
-    assert isinstance(e.value.code, str) and "M9c" in e.value.code
-    assert not (tmp_path / "o").exists()
+            os.path.join(rendered_imu, "settings.yaml"), rendered_imu, "--imu",
+            "--gt", os.path.join(rendered_imu, "gt.txt"), "--out", str(out), "--device", "cpu"])
+    with open(out / "ate.json") as f:
+        ate = json.load(f)
+    assert ate["imu_initialized"] is True and ate["scale"] == 1.0, ate
+    assert ate["ate_rmse"] < MONO_IMU_ATE_LIMIT_M and ate["n_associated"] >= 60, ate
+    assert ate["n_after_imu_init"] >= 10, ate
+    assert ate["ate_rmse_after_imu_init"] < MONO_IMU_ATE_AFTER_INIT_LIMIT_M, ate
+    for name in ("f_traj.txt", "f_traj_euroc.txt", "kf_traj.txt"):
+        assert len(np.atleast_2d(np.loadtxt(out / name))) >= 2, name
+    with open(out / "data" / "lm_imu_inits.txt") as f:
+        assert f.read().split() == ["0:", "1.0000"]

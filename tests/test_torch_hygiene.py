@@ -461,8 +461,8 @@ def test_no_not_implemented_error_names_resize_rectification_or_kb8():
                 for word in ("resize", "rectif", "kb8", "fisheye", "kannala", "newwidth"):
                     assert word not in low, f"{path.relative_to(ROOT)}:{n}: {line.strip()}"
     # the sensors and parts still to port keep their raise
-    with pytest.raises(NotImplementedError, match="M9c"):
-        system.System(_rig_settings("kb8", "cpu"), system.Sensor.IMU_MONOCULAR, device="cpu")
+    with pytest.raises(NotImplementedError, match="M9d"):
+        system.System(_rig_settings("kb8", "cpu"), system.Sensor.IMU_RGBD, device="cpu")
     atlas = _rig_settings("kb8", "cpu")
     atlas.load_atlas = "in.osa"
     with pytest.raises(NotImplementedError, match="M9e"):
@@ -494,3 +494,22 @@ def test_the_monocular_path_defaults_to_the_card_and_honours_cpu(monkeypatch):
         _rig_settings("rectified-resized", "cpu"), system.Sensor.MONOCULAR))
     assert made.tracker.device == made.local_mapper.device == made.loop_closer.device == made.device
     assert made.loop_closer.fix_scale is False
+
+
+def test_the_monocular_inertial_path_defaults_to_the_card_and_honours_cpu(monkeypatch):
+    """System(Sensor.IMU_MONOCULAR) (M9c) resolves device=None to the card;
+    device="cpu" puts its calibration, tracker and mapper on the CPU. A
+    second camera in the settings is ignored, as the visual monocular
+    System ignores it, and its loop closer keeps the scale fixed."""
+    for kind in ("rectified-resized", "kb8"):
+        s = system.System(_rig_settings(kind, "cpu"), system.Sensor.IMU_MONOCULAR,
+                          vocabulary=False, device="cpu")
+        assert s._rect is None and s.tracker.stereo_rig is None
+        assert s.tracker.monocular and s.tracker.use_imu and s.local_mapper.monocular
+        assert s.imu_calib.R_bc.device.type == "cpu" and s.tracker._Rbc_dev.device.type == "cpu"
+        assert s.local_mapper._Rbc_dev.device.type == "cpu"
+    made = _asks_the_resolver(monkeypatch, [system], lambda: system.System(
+        _rig_settings("rectified-resized", "cpu"), system.Sensor.IMU_MONOCULAR))
+    assert made.tracker.device == made.local_mapper.device == made.loop_closer.device == made.device
+    assert made.imu_calib.R_bc.device == made.device
+    assert made.loop_closer.fix_scale is True

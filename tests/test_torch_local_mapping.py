@@ -624,7 +624,6 @@ def test_tracker_with_a_mapper_follows_the_jax_tracker(mapped):
 
 # -------------------------------------------------------------- what is left out
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object(), monocular=True), "M9"),      # monocular-inertial (M9c)
     (dict(mesh=object()), "M10"),
 ])
 def test_left_out_branches_raise_with_their_item(kwargs, item):
@@ -634,13 +633,26 @@ def test_left_out_branches_raise_with_their_item(kwargs, item):
 
 
 def test_the_visual_monocular_mapper_builds():
-    """A monocular map without an IMU (M9b) is mapped; its scale
-    refinement, which only a monocular-inertial map runs, still raises."""
+    """A monocular map without an IMU (M9b) is mapped, and since M9c one
+    with an IMU too; the scale refinement of a chain too short for it (here
+    one keyframe) leaves the map as it was."""
+    import types
+
+    from fasttrack_tpu_torch.imu.preintegration import ImuCalib
+
     _, tcam = cams()
     mapper = tmapping.LocalMapper(tmap.Atlas(), tcam, 0.0, monocular=True, device="cpu")
     assert mapper.monocular and mapper.imu_calib is None
-    with pytest.raises(NotImplementedError, match="M9c"):
-        mapper._scale_refinement(None)
+    calib = ImuCalib.default(device="cpu")
+    mapper = tmapping.LocalMapper(tmap.Atlas(), tcam, 0.0, monocular=True, imu_calib=calib,
+                                  device="cpu")
+    assert mapper.monocular and mapper.imu_calib is calib
+    lone = types.SimpleNamespace(kid=0, prev_kf_id=None, R_cw=np.eye(3), t_cw=np.ones(3),
+                                 preintegrated=None)
+    mapper.atlas.current.keyframes[0] = lone
+    mapper._scale_refinement(lone)
+    np.testing.assert_array_equal(lone.t_cw, np.ones(3))
+    assert mapper.stats.series.get("lm_scale_refinement_scale", []) == []
 
 
 def test_a_mapper_on_its_thread_queues_to_the_loop_closer():

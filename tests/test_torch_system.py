@@ -243,7 +243,6 @@ def _settings(**kw):
 
 
 LEFT_OUT = {
-    "IMU_MONOCULAR": (dict(), dict(sensor=Sensor.IMU_MONOCULAR), "M9c"),
     "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9d"),
     "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9d"),
     "load_atlas": (dict(load_atlas="a.osa"), dict(), "M9e"),

@@ -299,14 +299,20 @@ def test_system_builds_the_calibration_from_the_settings(seq):
     # the samples reach the tracker's queue
     system.tracker_grab_imu([(0.1, np.ones(3), np.zeros(3))])
     assert len(system.tracker.imu_queue) == 1
-    for sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_RGBD):
-        with pytest.raises(NotImplementedError, match="M9"):
-            System(ts, sensor, vocabulary=False, device="cpu")
+    # the monocular-inertial sensor (M9c) builds the same calibration; the
+    # RGB-D one still raises, naming M9d
+    mono = System(ts, Sensor.IMU_MONOCULAR, vocabulary=False, device="cpu")
+    np.testing.assert_array_equal(mono.imu_calib.R_bc.numpy(), R.astype(np.float32))
+    assert (mono.imu_calib.noise_gyro, mono.imu_calib.freq) == (2e-4, 400.0)
+    assert mono.tracker.use_imu and mono.tracker.monocular and mono.local_mapper.monocular
+    with pytest.raises(NotImplementedError, match="M9d"):
+        System(ts, Sensor.IMU_RGBD, vocabulary=False, device="cpu")
     for call in (system.save_atlas, system.load_atlas):
         with pytest.raises(NotImplementedError, match="M9"):
             call("a.osa")
-    with pytest.raises(NotImplementedError, match="M9"):
-        system.local_mapper._scale_refinement(None)
+    # a stereo map has no scale to refine: its mapper never reaches the
+    # refinement, which only a monocular-inertial map's takes
+    assert not system.local_mapper.monocular and mono.local_mapper._scale_kf_counter == 0
     # the converged full inertial BA of the post-loop global BA: a lone
     # keyframe's chain holds no window, so one sweep and done
     lone = types.SimpleNamespace(kid=0, prev_kf_id=None, R_cw=np.eye(3), t_cw=np.zeros(3))

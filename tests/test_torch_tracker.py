@@ -556,28 +556,19 @@ def _cam():
 CFG = OrbConfig(H, W, n_features=N_FEATURES, n_levels=N_LEVELS)
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(imu_calib=object(), monocular=True), "M9"),     # monocular-inertial (M9c)
-])
-def test_left_out_constructor_arguments_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tracking.Tracker(_cam(), CFG, 28.0, Atlas(), device="cpu", **kwargs)
-
-
 def test_kb8_camera_raises():
     """Since M9a a KB8 camera builds: with its rig it takes the fisheye
-    route, without one the rectified route, as the JAX tracker does; what
-    still raises for it is the monocular-inertial tracker (M9c), since the
-    visual monocular one builds (M9b)."""
+    route, without one the rectified route, as the JAX tracker does; the
+    monocular tracker builds on it, visual (M9b) and inertial (M9c)."""
     cam = make_kannala_brandt8(190.0, 190.0, 160.0, 120.0, 0, 0, 0, 0, W, H, device="cpu")
     assert tracking.Tracker(cam, CFG, 28.0, Atlas(), device="cpu").stereo_rig is None
     rig = stereo_rig_from_numpy(cam, cam, np.eye(4) + np.eye(4, k=3) * 0.1, 19.0, device="cpu")
     tr = tracking.Tracker(cam, CFG, 19.0, Atlas(), stereo_rig=rig, device="cpu")
     assert tr.stereo_rig.left.params.device.type == "cpu"
     assert tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu").monocular
-    with pytest.raises(NotImplementedError, match="M9c"):
-        tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu",
-                         imu_calib=ImuCalib.default(device="cpu"))
+    tr = tracking.Tracker(cam, CFG, 28.0, Atlas(), monocular=True, device="cpu",
+                          imu_calib=ImuCalib.default(device="cpu"))
+    assert tr.monocular and tr.use_imu and tr._Rbc_dev.device.type == "cpu"
 
 
 def test_monocular_tracker_builds_and_resets_its_initializer():
