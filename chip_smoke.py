@@ -58,7 +58,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    after, the ATE against ground truth, ms/frame and ms/keyframe by step;
 11. system, card against CPU: the first frames (three keyframes, one
    adjustment) again through System(device="cpu"): states, paths, keyframe
-   frames, map-point counts and poses;
+   frames, map-point counts and poses; the CPU run goes in the renderer's
+   process while phases 12-16 run on the card, and is checked after them;
 12. system, mapping on its own thread (async_mapping=True): every frame OK,
    the mapper drained and idle after shutdown, the ATE;
 13. stereo-inertial system in its default configuration:
@@ -85,7 +86,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    biases within 1e-4, H within 1e-2 of its largest entry; the window
    also in float64 on both (ROADMAP P5);
 15. BASELINE.md's toggle matrix on the visual Tracker (no mapper): the first
-   N_TOGGLE_FRAMES frames of phase 8's sequence through seven trackers in
+   N_TOGGLE_FRAMES frames of phase 8's sequence (N_TOGGLE_HOST_FRAMES for
+   the masks with host extraction) through seven trackers in
    turns, frame by frame: masks 1111 with and without pose optimization,
    0000 with and without, 1000, 1100 and 0011 (the host sides of the
    offload toggles: ops/host_kernels.py over the native library). Per
@@ -215,6 +217,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
    a keyframe, and F8 keeps such frames stepwise); (b) the first inertial window after 25a's IMU init
    solved again on the CPU from the same inputs, in float32 (P5): the
    states within phase 14's tolerance.
+26. the RGB-D System (M9d) at ORB-SLAM3's TUM1.yaml sizes (640x480 at 30
+   fps, 1000 features, 8 levels, bf 40, ThDepth 40) on the rendered sweep
+   with its exact depth maps (datasets.synthetic.generate_rgbd_sequence):
+   (a) System(Sensor.RGBD) in its default configuration (the shipped
+   vocabulary, the loop closer inline) over 60 frames: every frame OK and
+   stepwise (ROADMAP F40), fetches and depths per frame, keyframes, map
+   points, the SE(3) ATE (at most 0.02 m and twice the JAX package's
+   paired reading, RGBD_JAX), ms/frame of stepwise and keyframe frames,
+   both kernels' launches by stage; (b) System(Sensor.IMU_RGBD) over 80
+   frames with their 200 Hz IMU stream (T_b_c1 = I): the IMU init after
+   2 s, every frame from it on OK, |bg|, the SE(3) ATE (at most 0.02 m
+   over all frames and over those after the init), ms/frame of stepwise
+   frames before and after the init and of keyframe frames; (c)
+   process_rgbd_frame on frame 0 on the card and on the CPU (keypoint
+   overlap, u_right and depth equal on the common keypoints), and 26a's
+   frames up to its second keyframe (its first fusion) through the default
+   System on both: states, keyframes, camera centres within 1e-3 m.
 
 Phase 3 also times torch._int_mm of the +-1 descriptors at the matrix
 kernel's four shapes: the int8 product the kernel computes in its body
@@ -224,18 +243,18 @@ yardstick.
 Phases 8 to 12 and 15 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
 same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
-13's map.
+13's map. Phases 26a-c share the RGB-D scene.
 
 The line before the last two is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Each kernel's `launches` is what the
-twenty-three paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
-20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a, 24b's card run and 25a's
-two) launched, counted from 0 at each path's start (phase 19b launches
-neither); `launches_relocalization` and `launches_loop_closing` are the
-part of phases 17-18 that relocalization and the loop closer made, and
-`launches_merge` the part of phases 20a and 20b that `_merge_maps` made
-(the top-K kernel's K = 2 verification, the matrix kernel's fusion at the
-weld). The matrix kernel is launched by the system paths alone (map-point
+twenty-six paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
+20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a, 24b's card run, 25a's
+two, 26a, 26b and 26c's card run) launched, counted from 0 at each path's
+start (phase 19b launches neither); `launches_relocalization` and
+`launches_loop_closing` are the part of phases 17-18 that relocalization
+and the loop closer made, and `launches_merge` the part of phases 20a and
+20b that `_merge_maps` made (the top-K kernel's K = 2 verification, the
+matrix kernel's fusion at the weld). The matrix kernel is launched by the system paths alone (map-point
 fusion); no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
@@ -334,15 +353,19 @@ N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
 ATE_LIMIT_M = 0.02
 N_ASYNC_FRAMES = 50             # phase 12: three keyframes, one adjustment
 MAX_SYSTEM_CPU_FRAMES = 48      # phase 11 stops after the frame that follows the third keyframe
+SYSTEM_CPU_THREADS = 4          # phase 11's CPU run, beside the card phases on the same host
 N_INERTIAL_FRAMES = 160         # phase 13: 8 s, IMU init at ~2 s, the 5 s full-BA stage after it
 N_REPLAY_FRAMES = 3             # phase 14: inertial fused frames replayed on the CPU
 # Phases 15 and 16 run the host extractor, whose NumPy pyramid takes ~2 s a
 # frame on the card's host; phase 15 is cut from 40 frames to 24, then to 12
 # (medians over the last 10) to make room for phases 22-23, and phase 16
-# from 60 frames to 50 (9 after its IMU init) to make room for phase 25, so
-# that the whole run stays inside its time limit
+# from 60 frames to 50 (9 after its IMU init) to make room for phase 25;
+# for phase 26, phase 15's masks with host extraction run 6 frames (medians
+# over the last 4) and phase 16 45 (4 after its IMU init), so that the
+# whole run stays inside its time limit
 N_TOGGLE_FRAMES = 12            # phase 15: of phase 8's sequence, per configuration
-N_HOST_INERTIAL_FRAMES = 50     # phase 16: of phase 13's sequence (IMU init at frame 40)
+N_TOGGLE_HOST_FRAMES = 6        # phase 15: the same, for the masks that extract on the host
+N_HOST_INERTIAL_FRAMES = 45     # phase 16: of phase 13's sequence (IMU init at frame 40)
 # Phase 16's ATE over all its frames. Before IMU init the host extractor's map
 # lets a local BA pull the keyframes by centimetres, in the JAX package as in
 # the port (ROADMAP F15). tools/host_route_drift.py on the card's host CPU read
@@ -454,6 +477,24 @@ MONO_INIT_SLACK, MONO_OK_SLACK, MONO_ATE_FACTOR = 1, 3, 2.0
 N_MI_FRAMES = 70
 MI_SCALE_TOL = 0.05             # the Sim(3) scale of the frames from the IMU init on
 MI_ATE_LIMIT_M = 0.02           # their SE(3) ATE (an H100 read 0.0091 m over 16 frames)
+# Phases 26a-c: the RGB-D System at the sizes of ORB-SLAM3's
+# Examples/RGB-D/TUM1.yaml (640x480 at 30 fps, 1000 features, 8 levels,
+# scale 1.2, FAST 20/7, Camera.bf 40.0, ThDepth 40.0, so th_depth 3.125 m
+# at the renderer's fx = 512), on the rendered sweep (seed 3) with its exact
+# depth maps; 26b runs its first N_RGBD_INERTIAL_FRAMES with the IMU stream,
+# 26a the first N_RGBD_FRAMES (the sweep's period is 3 s for both)
+RGBD_H, RGBD_W, RGBD_FPS, RGBD_SEED = 480, 640, 30.0, 3
+RGBD_FEATURES, RGBD_BF, RGBD_TH_DEPTH = 1000, 40.0, 40.0
+N_RGBD_FRAMES = 60
+N_RGBD_INERTIAL_FRAMES = 80     # the IMU init after its 2 s of keyframes, at frame ~65
+N_RGBD_CPU_FRAMES = 6           # phase 26c, if 26a made fewer than two keyframes
+# Phase 26a-b's paired reading: the JAX package's System(Sensor.RGBD) and
+# System(Sensor.IMU_RGBD) in their default configuration over the same
+# frames, on the card's host CPU (rig_reading.rgbd_reading("jax", inertial,
+# "chip")); 26a's ATE limit is twice its ATE, and at most ATE_LIMIT_M
+RGBD_JAX = {"frames_ok": 60, "keyframes": 6, "ate_m": 0.006312, "imu_init_frame": 65,
+            "ate_inertial_m": 0.006586}
+RGBD_ATE_FACTOR = 2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -978,10 +1019,11 @@ def phase_fused_card_vs_cpu(kept):
     print(f"phase 7 fused step card against CPU: {json.dumps(report)}")
 
 
-def tracker_step(tracker, frame, entry=None, imu=None, mono=False) -> dict:
+def tracker_step(tracker, frame, entry=None, imu=None, mono=False, depth=None) -> dict:
     """One frame of the rendered sequence through `track_stereo` of `entry`
     (a System; by default the tracker itself), with the IMU samples `imu`
-    if given, or its left image through `track_monocular` if `mono`, timed
+    if given, or its left image through `track_monocular` if `mono`, or its
+    left image and the depth map `depth` through `track_rgbd`, timed
     on the host's clock (the call ends after its last fetch), and what the
     checks read. A frame went stepwise if it recorded `orb_extraction` (the
     fused path records it only when it falls back). A frame with no pose
@@ -995,6 +1037,8 @@ def tracker_step(tracker, frame, entry=None, imu=None, mono=False) -> dict:
     t0 = time.perf_counter()
     if mono:
         entry.track_monocular(frame.left, frame.timestamp, imu=imu)
+    elif depth is not None:
+        entry.track_rgbd(frame.left, depth, frame.timestamp, imu=imu)
     elif imu is None:
         (entry or tracker).track_stereo(frame.left, frame.right, frame.timestamp)
     else:
@@ -1014,6 +1058,12 @@ def tracker_step(tracker, frame, entry=None, imu=None, mono=False) -> dict:
         "R": None if last.R_cw is None else last.R_cw.copy(),
         "t": None if last.t_cw is None else last.t_cw.copy(),
     }
+
+
+def frame_ms(rows):
+    """(median, p90, count) of the rows' host ms, zeros for no rows."""
+    v = [r["ms"] for r in rows]
+    return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
 
 
 def make_tracker(seq, device, kernel_config=None) -> Tracker:
@@ -1311,21 +1361,43 @@ def phase_system(device, seq, card, tracker_ate):
     return kern.launches, matrix.launches, kern.launches_by_rows[EPI_ROWS], log
 
 
-def phase_system_card_vs_cpu(seq, card_log):
-    """The first frames through System(device="cpu"), as far as the frame
-    after the third keyframe (one bundle adjustment): the same state, path
-    and keyframe frames, map-point count within 2%, poses within 1e-3 (the
-    adjustment sums in another order on the card)."""
+def system_cpu_run(seq):
+    """Phase 11's CPU side, in the renderer's process (off the card phases'
+    path): the frames of `seq` through System(device="cpu") on
+    SYSTEM_CPU_THREADS threads; each frame's tracker_step row, the bundle
+    adjustments run and the keyframes made."""
+    torch.set_num_threads(SYSTEM_CPU_THREADS)
+    system = make_system(seq, "cpu")
+    keep = ("state", "path", "keyframes", "mappoints", "R", "t")
+    rows = [{k: r[k] for k in keep}
+            for r in (tracker_step(system.tracker, f, entry=system) for f in seq.frames)]
+    system.shutdown()
+    return rows, int(sum(system.stats.series["lm_local_bas"])), system.atlas.current.n_keyframes()
+
+
+def start_system_card_vs_cpu(pool, seq, card_log):
+    """Phase 11's CPU run, started in `pool` on the first frames of phase
+    10, as far as the frame after the third keyframe (one bundle
+    adjustment); returns (future, n, the third keyframe's frame)."""
     made = np.cumsum([len(r["mapped"]) for r in card_log])
     check(made[-1] >= 3 and int(np.argmax(made >= 3)) + 2 <= MAX_SYSTEM_CPU_FRAMES,
           f"the card's keyframes by frame: {made.tolist()}")
     third = int(np.argmax(made >= 3))
     n = third + 2
-    system = make_system(seq, "cpu")
+    return pool.submit(system_cpu_run, seq._replace(frames=seq.frames[:n])), n, third
+
+
+def phase_system_card_vs_cpu(card_log, cpu_run):
+    """Phase 11: the CPU run of start_system_card_vs_cpu against phase 10's
+    frames on the card: the same state, path and keyframe frames, map-point
+    count within 2%, poses within 1e-3 (the adjustment sums in another order
+    on the card)."""
+    future, n, third = cpu_run
+    rows, bundle_adjustments, keyframes = future.result()
     worst = {"frames": n, "third_keyframe_at": third, "pose_R_maxdiff": 0.0, "pose_t_maxdiff": 0.0,
              "mappoints_maxdiff": 0}
-    for i, frame in enumerate(seq.frames[:n]):
-        cpu, card = tracker_step(system.tracker, frame, entry=system), card_log[i]
+    for i, cpu in enumerate(rows):
+        card = card_log[i]
         dR = float(np.abs(cpu["R"] - card["R"]).max())
         dt = float(np.abs(cpu["t"] - card["t"]).max())
         dmp = abs(cpu["mappoints"] - card["mappoints"])
@@ -1338,9 +1410,7 @@ def phase_system_card_vs_cpu(seq, card_log):
         worst["pose_R_maxdiff"] = max(worst["pose_R_maxdiff"], dR)
         worst["pose_t_maxdiff"] = max(worst["pose_t_maxdiff"], dt)
         worst["mappoints_maxdiff"] = max(worst["mappoints_maxdiff"], dmp)
-    system.shutdown()
-    worst["bundle_adjustments"] = int(sum(system.stats.series["lm_local_bas"]))
-    worst["keyframes"] = system.atlas.current.n_keyframes()
+    worst["bundle_adjustments"], worst["keyframes"] = bundle_adjustments, keyframes
     check(worst["bundle_adjustments"] >= 1 and worst["keyframes"] >= 3, f"phase 11 ran {worst}")
     print(f"phase 11 system card against CPU over {n} frames: {json.dumps(worst)}")
 
@@ -1526,19 +1596,15 @@ def phase_system_inertial(device, seq, card):
     check(ate["n"] == len(seq.frames) and ate["rmse"] <= ATE_LIMIT_M,
           f"inertial ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
 
-    def ms(rows):
-        v = [r["ms"] for r in rows]
-        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
-
     after = log[init_frame + 1:]
     times = {
         "fused inertial frames without a keyframe":
-            ms([r for r in fused[N_WARMUP:] if not r["mapped"]]),
+            frame_ms([r for r in fused[N_WARMUP:] if not r["mapped"]]),
         "stepwise frames without a keyframe, after IMU init":
-            ms([r for r in after if r["path"] == "stepwise" and not r["mapped"]]),
+            frame_ms([r for r in after if r["path"] == "stepwise" and not r["mapped"]]),
         "stepwise frames before IMU init, no keyframe":
-            ms([r for r in log[1:init_frame] if not r["mapped"]]),
-        "frames with a keyframe": ms([r for r in log[1:] if r["mapped"]]),
+            frame_ms([r for r in log[1:init_frame] if not r["mapped"]]),
+        "frames with a keyframe": frame_ms([r for r in log[1:] if r["mapped"]]),
     }
     windows = series["lm_inertial_window"]
     fetches = sum(r["fetches"] for r in log)
@@ -1720,9 +1786,13 @@ def phase_toggle_matrix(device, seq, card):
     trackers = [make_tracker(seq, device, KernelConfig.from_bitmask(m, pose_optimization=po))
                 for m, po in TOGGLE_CONFIGS]
     logs = [[] for _ in TOGGLE_CONFIGS]
+    n_frames = [N_TOGGLE_FRAMES if m[0] == "1" else N_TOGGLE_HOST_FRAMES
+                for m, _ in TOGGLE_CONFIGS]
     try:
-        for f in seq.frames[:N_TOGGLE_FRAMES]:
-            for tr, log in zip(trackers, logs):
+        for i, f in enumerate(seq.frames[:N_TOGGLE_FRAMES]):
+            for tr, log, n in zip(trackers, logs, n_frames):
+                if i >= n:
+                    continue
                 before = stage_snapshot(counts)
                 r = tracker_step(tr, f)
                 r["stages"] = stage_delta(stage_snapshot(counts), before)
@@ -1771,7 +1841,7 @@ def phase_toggle_matrix(device, seq, card):
         check(fused == 0 if mask != "1111" or not po else fused >= N_TOGGLE_FRAMES - 6,
               f"phase 15 {name}: {fused} fused frames")
         ate = trajectory_ate(tr.trajectory, seq)
-        check(ate["n"] == N_TOGGLE_FRAMES and ate["rmse"] < ATE_LIMIT_M,
+        check(ate["n"] == len(log) and ate["rmse"] < ATE_LIMIT_M,
               f"phase 15 {name}: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, "
               f"limit {ATE_LIMIT_M} m")
         times = [r["ms"] for r in log[2:]]
@@ -1867,14 +1937,12 @@ def phase_system_inertial_host(device, seq, card):
           f"phase 16: the tracker launched {tracker_topk} top-k and {tracker_matrix} matrix "
           f"kernels, by stage {counts}")
 
-    def ms(rows):
-        v = [r["ms"] for r in rows]
-        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
-
     times = {
-        "before IMU init, no keyframe": ms([r for r in log[2:init_frame] if not r["mapped"]]),
-        "after IMU init, no keyframe": ms([r for r in log[init_frame + 1:] if not r["mapped"]]),
-        "frames with a keyframe": ms([r for r in log[1:] if r["mapped"]]),
+        "before IMU init, no keyframe":
+            frame_ms([r for r in log[2:init_frame] if not r["mapped"]]),
+        "after IMU init, no keyframe":
+            frame_ms([r for r in log[init_frame + 1:] if not r["mapped"]]),
+        "frames with a keyframe": frame_ms([r for r in log[1:] if r["mapped"]]),
     }
     series = system.stats.series
     print(
@@ -2654,13 +2722,9 @@ def rig_report(log, system, seq, name):
     check(ate["n"] == len(log) and ate["rmse"] <= ATE_LIMIT_M,
           f"{name}: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit {ATE_LIMIT_M} m")
 
-    def ms(rows):
-        v = [r["ms"] for r in rows]
-        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
-
-    times = {"all frames": ms(log[2:]),
-             "fused": ms([r for r in log[2:] if r["path"] == "fused"]),
-             "stepwise": ms([r for r in log[2:] if r["path"] == "stepwise"])}
+    times = {"all frames": frame_ms(log[2:]),
+             "fused": frame_ms([r for r in log[2:] if r["path"] == "fused"]),
+             "stepwise": frame_ms([r for r in log[2:] if r["path"] == "stepwise"])}
     # the trajectory keeps each frame's pose as tracked: frames up to the
     # init are in the world before its rotation, the others after it
     traj = system.tracker.trajectory
@@ -2942,14 +3006,11 @@ def phase_mono_system(device, seq, card):
           f"{None if ate_cut is None else round(ate_cut['rmse'], 4)} m, limit {ate_limit:.4f} m")
     check(kern.launches > 0 and matrix.launches > 0, "phase 24a: a kernel was not launched")
 
-    def ms(rows):
-        v = [r["ms"] for r in rows]
-        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
-
     after = log[init + 1:]
-    times = {"fused": ms([r for r in after if r["path"] == "fused" and not r["mapped"]]),
-             "stepwise": ms([r for r in after if r["path"] == "stepwise" and not r["mapped"]]),
-             "keyframe": ms([r for r in after if r["mapped"]])}
+    unmapped = [r for r in after if not r["mapped"]]
+    times = {"fused": frame_ms([r for r in unmapped if r["path"] == "fused"]),
+             "stepwise": frame_ms([r for r in unmapped if r["path"] == "stepwise"]),
+             "keyframe": frame_ms([r for r in after if r["mapped"]])}
     fused = [r for r in log if r["path"] == "fused"]
     # [top-k, matrix] launches of each tracker stage
     by_stage = {name: [sum(r["stages"][name][j] for r in log) for j in (0, 1)] for name in stages}
@@ -3130,14 +3191,10 @@ def phase_mono_inertial_system(device, seq, card):
     check(kern.launches > 0 and matrix.launches > 0, "phase 25a: a kernel was not launched")
     check(rec["local_inertial_ba"], "phase 25a recorded no inertial window")
 
-    def ms(rows):
-        v = [r["ms"] for r in rows]
-        return (float(np.median(v)), float(np.percentile(v, 90)), len(v)) if v else (0.0, 0.0, 0)
-
-    times = {"stepwise, no keyframe": ms([r for r in log[init + 1:] if r["path"] == "stepwise"
+    times = {"stepwise, no keyframe": frame_ms([r for r in log[init + 1:] if r["path"] == "stepwise"
                                            and not r["mapped"]]),
-             "fused inertial, no keyframe": ms([r for r in fused if not r["mapped"]]),
-             "keyframe": ms([r for r in log[init + 1:] if r["mapped"]])}
+             "fused inertial, no keyframe": frame_ms([r for r in fused if not r["mapped"]]),
+             "keyframe": frame_ms([r for r in log[init + 1:] if r["mapped"]])}
     by_stage = {name: [sum(r["stages"][name][j] for r in log) for j in (0, 1)] for name in stages}
     mapper = {"triangulation (10240 rows)": sum(k["topk_epi_rows"] for k in keyframes),
               "mapper top-k all": sum(k["topk"] for k in keyframes),
@@ -3205,6 +3262,255 @@ def phase_mono_inertial_card_vs_cpu(rec, card):
           + "; ".join(rows) + ("" if rec["flipped"] else "; no window of 25a flipped a step"))
 
 
+def rgbd_settings(seq, device, inertial=False, size=(RGBD_H, RGBD_W), features=RGBD_FEATURES,
+                  levels=8) -> Settings:
+    """ORB-SLAM3's TUM1.yaml settings (Camera.bf 40, ThDepth 40, scale 1.2,
+    FAST 20/7) for the renderer's undistorted pinhole at `size` (h, w);
+    with `inertial` the body frame is the camera's (T_b_c1 = I) at 200 Hz."""
+    h, w = size
+    kw = dict(T_b_c1=np.eye(4), imu_frequency=200.0) if inertial else {}
+    return Settings(camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, w, h, device=device),
+                    bf=RGBD_BF, th_depth=RGBD_TH_DEPTH, width=w, height=h, n_features=features,
+                    n_levels=levels, scale_factor=1.2, ini_th_fast=20.0, min_th_fast=7.0, **kw)
+
+
+def run_rgbd(system, scene, n, keyframes=None, stages=None, inertial=False):
+    """The first `n` frames of the RGB-D scene (sequence, depth maps)
+    through `system.track_rgbd`, with their IMU samples if `inertial`: one
+    tracker_step row each, with the keyframes the frame handed to the
+    mapper, its stage launches when given and whether the IMU is
+    initialized after it."""
+    seq, depths = scene
+    log, t_prev = [], -1.0
+    for f, d in zip(seq.frames[:n], depths):
+        before = stage_snapshot(stages) if stages is not None else None
+        n_kf = len(keyframes) if keyframes is not None else 0
+        r = tracker_step(system.tracker, f, entry=system, depth=d,
+                         imu=imu_between(seq, t_prev, f.timestamp) if inertial else None)
+        r["mapped"] = keyframes[n_kf:] if keyframes is not None else []
+        if stages is not None:
+            r["stages"] = stage_delta(stage_snapshot(stages), before)
+        r["imu_initialized"] = bool(system.atlas.current.imu_initialized)
+        log.append(r)
+        t_prev = f.timestamp
+    return log
+
+
+def launches_by_stage(log, stages, keyframes, lc_rows):
+    """[top-k, matrix] launches of each tracker stage, and the mapper's and
+    the loop closer's, over a run."""
+    tracker = {name: [sum(r["stages"][name][j] for r in log) for j in (0, 1)] for name in stages}
+    mapper = {"triangulation (10240 rows)": sum(k["topk_epi_rows"] for k in keyframes),
+              "mapper top-k all": sum(k["topk"] for k in keyframes),
+              "fusion (matrix)": sum(k["matrix"] for k in keyframes)}
+    closer = {k: sum(r[k] for r in lc_rows) for k in ("k1", "k2", "matrix")}
+    return f"tracker {tracker}, mapper {mapper}, loop closer {closer} over {len(lc_rows)} keyframes"
+
+
+def phase_rgbd_system(device, scene, card):
+    """The RGB-D System (M9d) in its default configuration on the card (the
+    shipped vocabulary, the loop closer inline with the scale fixed): the
+    stereo initialization from the depth map, stepwise frames only (ROADMAP
+    F40), the mapper's triangulation and fusion; gated against the
+    renderer's truth and the JAX package's reading (RGBD_JAX)."""
+    seq, _ = scene
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = System(rgbd_settings(seq, device), Sensor.RGBD, device=device)
+    check(not system.tracker.monocular and system.loop_closer.fix_scale is True
+          and system._rect is None,
+          "phase 26a: not a stereo-like RGB-D System with a fixed-scale loop closer")
+    check(abs(system.tracker.th_depth - RGBD_TH_DEPTH * RGBD_BF / seq.fx) < 1e-9,
+          f"phase 26a: th_depth {system.tracker.th_depth}")
+    keyframes, lc_rows = [], []
+    watch_mapper(system, keyframes)
+    watch_loop_closer(system.loop_closer, lc_rows)
+    stages, restore = watch_tracker_stages()
+    try:
+        log = run_rgbd(system, scene, N_RGBD_FRAMES, keyframes, stages)
+    finally:
+        restore()
+    system.shutdown()
+
+    states = [r["state"] for r in log]
+    state_str = "".join(s[0] for s in states)
+    check(states == ["OK"] * len(log), f"phase 26a: a frame is not OK: {state_str}")
+    for i, r in enumerate(log):
+        check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"phase 26a frame {i}: pose")
+        # the RGB-D route is never fused, in the JAX package either (F40)
+        check(r["path"] == "stepwise", f"phase 26a frame {i}: {r['path']}")
+    check(log[0]["stereo"] >= 100, f"phase 26a: {log[0]['stereo']} depths on the first frame")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    ate_limit = min(ATE_LIMIT_M, RGBD_ATE_FACTOR * RGBD_JAX["ate_m"])
+    check(ate["n"] == N_RGBD_FRAMES and ate["rmse"] <= ate_limit,
+          f"phase 26a: SE(3) ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, limit "
+          f"{ate_limit:.4f} m")
+    check(kern.launches > 0 and matrix.launches > 0, "phase 26a: a kernel was not launched")
+    times = {"stepwise, no keyframe": frame_ms([r for r in log[1:] if not r["mapped"]]),
+             "keyframe": frame_ms([r for r in log[1:] if r["mapped"]])}
+    fetches = [r["fetches"] for r in log[1:]]
+    m = system.atlas.current
+    gt = np.asarray(seq.gt_pos[:len(log)])
+    rms_motion = float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean()))
+    print(
+        f"phase 26a RGB-D System, default configuration: {len(log)} frames of the rendered sweep "
+        f"at {RGBD_W}x{RGBD_H}, {RGBD_FPS:g} fps, with their exact depth maps (TUM1.yaml's "
+        f"sizes: {RGBD_FEATURES} features, 8 levels, bf {RGBD_BF}, ThDepth {RGBD_TH_DEPTH}, "
+        f"th_depth {system.tracker.th_depth:.3f} m) through System(Sensor.RGBD).track_rgbd on "
+        f"{card}: states {state_str}; initialized at frame {states.index('OK')}; keyframes "
+        f"{m.n_keyframes()} ({len(keyframes)} processed; the JAX package "
+        f"{RGBD_JAX['keyframes']}), map points {m.n_mappoints()}; SE(3) ATE RMSE "
+        f"{ate['rmse']:.4f} m over {ate['n']} frames (limit {ate_limit:.4f}; the JAX package "
+        f"{RGBD_JAX['ate_m']:.4f}) beside {rms_motion:.4f} m of RMS motion; ms/frame median, p90 "
+        f"(count): " + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; the init frame {log[0]['ms']:.1f} ms; every frame stepwise (F40), fetches per frame "
+        f"{np.mean(fetches):.3f} (min {min(fetches)}, max {max(fetches)}) after the first; depths "
+        f"per frame median {np.median([r['stereo'] for r in log]):.0f} (the first "
+        f"{log[0]['stereo']}); top-k launches {kern.launches} ({dict(kern.launches_by_k)} by K), "
+        f"by stage: {launches_by_stage(log, stages, keyframes, lc_rows)}; matrix launches "
+        f"{matrix.launches}"
+    )
+    return kern.launches, matrix.launches, log
+
+
+def phase_rgbd_inertial_system(device, scene, card):
+    """The RGB-D-inertial System (M9d) in its default configuration on the
+    card over the same scene with its exact 200 Hz IMU stream (T_b_c1 = I):
+    the IMU init after 2 s, the VI pose optimizers on its stepwise frames,
+    the inertial windows; gated against the renderer's truth."""
+    seq, _ = scene
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    system = System(rgbd_settings(seq, device, inertial=True), Sensor.IMU_RGBD, device=device)
+    check(system.tracker.use_imu and not system.tracker.monocular
+          and system.loop_closer.fix_scale is True,
+          "phase 26b: not an RGB-D-inertial System with a fixed-scale loop closer")
+    keyframes, lc_rows = [], []
+    watch_mapper(system, keyframes)
+    watch_loop_closer(system.loop_closer, lc_rows)
+    stages, restore = watch_tracker_stages()
+    try:
+        log = run_rgbd(system, scene, N_RGBD_INERTIAL_FRAMES, keyframes, stages, inertial=True)
+    finally:
+        restore()
+    system.shutdown()
+
+    states = [r["state"] for r in log]
+    state_str = "".join(s[0] for s in states)
+    check(any(r["imu_initialized"] for r in log),
+          f"phase 26b: the IMU never initialized: {state_str}")
+    init = next(i for i, r in enumerate(log) if r["imu_initialized"])
+    check(len(log) - init - 1 >= 10,
+          f"phase 26b: only {len(log) - init - 1} frames after the IMU init")
+    check(all(s == "OK" for s in states[init:]),
+          f"phase 26b: a frame from the IMU init (frame {init}) on is not OK: {state_str}")
+    for i, r in enumerate(log):
+        check(r["path"] == "stepwise", f"phase 26b frame {i}: {r['path']}")
+        if r["R"] is not None:
+            check(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all(), f"phase 26b frame {i}: pose")
+    bg = system.tracker.bias[0]
+    check(np.linalg.norm(bg) < 0.05, f"phase 26b: gyro bias {bg} (the stream has none)")
+    # the frames up to the init are tracked in the world before its rotation
+    traj = system.tracker.trajectory
+    ate, ate_post = trajectory_ate(traj, seq), trajectory_ate(traj[init + 1:], seq)
+    check(ate["rmse"] <= ATE_LIMIT_M and ate_post["rmse"] <= ATE_LIMIT_M,
+          f"phase 26b: SE(3) ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, "
+          f"{ate_post['rmse']:.4f} m over the {ate_post['n']} after the IMU init (limit "
+          f"{ATE_LIMIT_M} m)")
+    check(kern.launches > 0 and matrix.launches > 0, "phase 26b: a kernel was not launched")
+    times = {"stepwise before the IMU init, no keyframe":
+             frame_ms([r for r in log[1:init] if not r["mapped"]]),
+             "stepwise inertial after it, no keyframe":
+             frame_ms([r for r in log[init + 1:] if not r["mapped"]]),
+             "keyframe": frame_ms([r for r in log[1:] if r["mapped"]])}
+    series = system.stats.series
+    m = system.atlas.current
+    print(
+        f"phase 26b RGB-D-inertial System, default configuration: {len(log)} frames of phase "
+        f"26a's scene with their 200 Hz IMU stream through "
+        f"System(Sensor.IMU_RGBD).track_rgbd(..., imu=...) on {card}: states {state_str}; IMU "
+        f"init at frame {init} ({seq.frames[init].timestamp:.3f} s; the JAX package "
+        f"{RGBD_JAX['imu_init_frame']}), |bg| {np.linalg.norm(bg):.5f} rad/s; every frame "
+        f"stepwise (F40), fetches per frame {np.mean([r['fetches'] for r in log[1:]]):.3f}; "
+        f"keyframes {m.n_keyframes()} ({len(keyframes)} processed), map points "
+        f"{m.n_mappoints()}; SE(3) ATE RMSE {ate['rmse']:.4f} m over {ate['n']} frames, "
+        f"{ate_post['rmse']:.4f} m over the {ate_post['n']} after the init (limit "
+        f"{ATE_LIMIT_M}; the JAX package {RGBD_JAX['ate_inertial_m']:.4f} over all); ms/frame "
+        f"median, p90 (count): "
+        + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f} ({v[2]})" for k, v in times.items())
+        + f"; lm_imu_init ms {[round(x, 1) for x in series['lm_imu_init'][-1:]]} (the call that "
+        f"initialized); inertial windows {int(sum(series['lm_inertial_bas']))}; top-k launches "
+        f"{kern.launches} ({dict(kern.launches_by_k)} by K), by stage: "
+        f"{launches_by_stage(log, stages, keyframes, lc_rows)}; matrix launches {matrix.launches}"
+    )
+    return kern.launches, matrix.launches
+
+
+def phase_rgbd_card_vs_cpu(device, scene, card, log_a):
+    """(a) process_rgbd_frame on frame 0 on the card and on the CPU: the
+    keypoints as sets (F4; the golden check's overlap), u_right and depth
+    exact on the common ones; (b) 26a's frames up to its second keyframe
+    (the first fusion, so both kernels run), inline, through the
+    default System on the card and with device="cpu": the same states and
+    keyframes, camera centres within 1e-3 m."""
+    seq, depths = scene
+    cfg = OrbConfig(height=RGBD_H, width=RGBD_W, n_features=RGBD_FEATURES, n_levels=8,
+                    scale_factor=1.2, ini_threshold=20.0, min_threshold=7.0)
+
+    def frame_on(dev):
+        fd = frame_pipeline.process_rgbd_frame(
+            torch.from_numpy(seq.frames[0].left).to(dev), torch.from_numpy(depths[0]).to(dev), cfg,
+            torch.tensor(RGBD_BF, device=dev))
+        return {k: v.cpu().numpy() for k, v in (
+            ("x", fd.kps.x), ("y", fd.kps.y), ("level", fd.kps.level), ("valid", fd.kps.valid),
+            ("u_right", fd.u_right), ("depth", fd.depth))}
+
+    def keys(f):
+        return {(float(f["x"][i]), float(f["y"][i]), int(f["level"][i])): i
+                for i in np.where(f["valid"])[0]}
+
+    on_card, on_cpu = frame_on(device), frame_on(torch.device("cpu"))
+    a, b = keys(on_card), keys(on_cpu)
+    both = sorted(set(a) & set(b))
+    overlap = len(both) / max(len(a), len(b))
+    ia, ib = np.asarray([a[k] for k in both]), np.asarray([b[k] for k in both])
+    equal = all(np.array_equal(on_card[k][ia], on_cpu[k][ib]) for k in ("u_right", "depth"))
+    n_depth = int((on_card["depth"][ia] > 0).sum())
+    check(overlap >= 0.97 and equal and n_depth >= 100,
+          f"phase 26c process_rgbd_frame: keypoint overlap {overlap:.4f}, u_right and depth "
+          f"equal on the {len(both)} common keypoints: {equal}, {n_depth} with a depth")
+
+    mapped = [i for i, r in enumerate(log_a) if r["mapped"]]
+    n = mapped[1] + 1 if len(mapped) > 1 else N_RGBD_CPU_FRAMES
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    logs = []
+    for dev in (device, "cpu"):
+        system = System(rgbd_settings(seq, dev), Sensor.RGBD, device=dev)
+        logs.append(run_rgbd(system, scene, n))
+        system.shutdown()
+        if dev == device:
+            launches = (kern.launches, matrix.launches)
+    worst = 0.0
+    for i, (gpu, cpu) in enumerate(zip(*logs)):
+        check(gpu["state"] == cpu["state"] and gpu["keyframes"] == cpu["keyframes"],
+              f"phase 26c frame {i}: card {gpu['state']} {gpu['keyframes']} keyframes, CPU "
+              f"{cpu['state']} {cpu['keyframes']}")
+        d = float(np.linalg.norm(-gpu["R"].T @ gpu["t"] + cpu["R"].T @ cpu["t"]))
+        check(d < 1e-3, f"phase 26c frame {i}: camera centres {d:.2e} m apart")
+        worst = max(worst, d)
+    check(launches[0] > 0 and launches[1] > 0, f"phase 26c: launches {launches} on the card")
+    print(
+        f"phase 26c RGB-D, card against CPU ({card}): process_rgbd_frame on frame 0: keypoint "
+        f"overlap {overlap:.4f} ({len(both)} common of {len(a)} / {len(b)}), u_right and depth "
+        f"equal on all of them, {n_depth} with a depth; the default System's first {n} frames "
+        f"(26a's keyframes at frames {mapped[:3]}): states {''.join(r['state'][0] for r in logs[0])} "
+        f"and keyframes {logs[0][-1]['keyframes']} on both, camera centres at most {worst:.2e} m "
+        f"apart; top-k launches {launches[0]}, matrix launches {launches[1]} (the card's run)"
+    )
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -3234,14 +3540,17 @@ def main():
                             rig=synthetic.tumvi_kb8_rig(KB8_SIZE, KB8_SIZE,
                                                         fov_deg=KB8_FOV_DEG),
                             plane_z=KB8_PLANE_Z),
+            renderer.submit(synthetic.generate_rgbd_sequence, N_RGBD_INERTIAL_FRAMES, RGBD_H,
+                            RGBD_W, fps=RGBD_FPS, seed=RGBD_SEED),
         )
-        run_phases(device, kind, card, t_start, *sequences)
+        run_phases(device, kind, card, t_start, renderer, *sequences)
 
 
-def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, radtan_seq,
-               kb8_seq):
-    """Phases 2-25, then the kernels line and the last lines; the arguments
-    after `t_start` are the futures of the rendered sequences."""
+def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, loop_seq,
+               radtan_seq, kb8_seq, rgbd_scene):
+    """Phases 2-26, then the kernels line and the last lines; `renderer` is
+    the renderer's process pool, and the arguments after it are the futures
+    of the rendered sequences."""
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3281,12 +3590,13 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     phase_tracker_card_vs_cpu(seq, tracker_log)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 8-9")
 
-    # 10. system, 11. card against CPU, 12. mapping on its own thread
+    # 10. system, 11. card against CPU (the CPU run in the renderer's process
+    # while phases 12-16 run; checked after them), 12. mapping on its own thread
     system_launches, system_matrix, system_epi, system_log = phase_system(
         device, seq, card, tracker_ate)
-    phase_system_card_vs_cpu(seq, system_log)
+    system_cpu = start_system_card_vs_cpu(renderer, seq, system_log)
     phase_system_async(device, seq, card)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 10-12")
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 10 and 12")
 
     # 13. stereo-inertial system, 14. its inertial programs card against CPU
     t0 = time.perf_counter()
@@ -3303,6 +3613,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 15")
     host_i_launches, host_i_matrix = phase_system_inertial_host(device, seq_i, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16")
+    phase_system_card_vs_cpu(system_log, system_cpu)
+    del system_log, system_cpu
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 11's check")
 
     # 17. relocalization, 18. loop closing (a: a drifted map, b: the System over a loop)
     reloc_all, reloc_matrix, reloc_launches = phase_relocalization(device, seq, card)
@@ -3355,6 +3668,18 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
     del mi_rec
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 25")
 
+    # 26. the RGB-D System (a: default configuration; b: with an IMU; c: card
+    # against CPU)
+    t0 = time.perf_counter()
+    scene = rgbd_scene.result()
+    print(f"rendered {N_RGBD_INERTIAL_FRAMES} frames at {RGBD_W}x{RGBD_H} with their depth maps "
+          f"and IMU stream (waited {time.perf_counter() - t0:.1f} s for them)")
+    rgbd_launches, rgbd_matrix, rgbd_log = phase_rgbd_system(device, scene, card)
+    rgbd_i_launches, rgbd_i_matrix = phase_rgbd_inertial_system(device, scene, card)
+    rgbd_cpu_launches, rgbd_cpu_matrix = phase_rgbd_card_vs_cpu(device, scene, card, rgbd_log)
+    del scene, rgbd_log
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 26")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -3371,7 +3696,8 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + map_launches["topk"] + loop_all + inertial_loop["topk"] + merge_all["topk"]
             + merge_sys_all + threads_lc["topk"] + async_i_launches + rect_launches
             + resize_launches + fish_launches + fish_cpu_launches + mono_launches
-            + mono_cpu_launches + mi_launches,
+            + mono_cpu_launches + mi_launches + rgbd_launches + rgbd_i_launches
+            + rgbd_cpu_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -3406,6 +3732,11 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             "launches_monocular_card_vs_cpu": mono_cpu_launches,
             # phase 25a: the monocular-inertial System
             "launches_monocular_inertial": mi_launches,
+            # phase 26: the RGB-D System (a), with an IMU (b), its first
+            # frames on the card (c)
+            "launches_rgbd": rgbd_launches,
+            "launches_rgbd_inertial": rgbd_i_launches,
+            "launches_rgbd_cpu": rgbd_cpu_launches,
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -3449,7 +3780,7 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
             + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix
             + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix + mono_matrix
-            + mono_cpu_matrix + mi_matrix,
+            + mono_cpu_matrix + mi_matrix + rgbd_matrix + rgbd_i_matrix + rgbd_cpu_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -3476,6 +3807,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
             "launches_monocular": mono_matrix,
             "launches_monocular_card_vs_cpu": mono_cpu_matrix,
             "launches_monocular_inertial": mi_matrix,
+            "launches_rgbd": rgbd_matrix,
+            "launches_rgbd_inertial": rgbd_i_matrix,
+            "launches_rgbd_cpu": rgbd_cpu_matrix,
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -3507,7 +3841,9 @@ def run_phases(device, kind, card, t_start, system_seq, inertial_seq, loop_seq, 
           "a kernel was not launched on the paths of phase 24")
     check(mi_launches > 0 and mi_matrix > 0,
           "a kernel was not launched on the paths of phase 25")
-    print(f"chip_smoke: all 25 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(min(rgbd_launches, rgbd_matrix, rgbd_i_launches, rgbd_i_matrix, rgbd_cpu_launches,
+              rgbd_cpu_matrix) > 0, "a kernel was not launched on the paths of phase 26")
+    print(f"chip_smoke: all 26 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

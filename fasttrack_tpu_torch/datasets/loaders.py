@@ -1,8 +1,8 @@
 """Dataset directory loaders (the reference's Examples/*/ LoadImages code).
 
-Port of fasttrack_tpu/datasets/loaders.py: the EuRoC and TUM-VI loaders
-(pure Python and NumPy). The KITTI and TUM-RGBD loaders come with their
-sensors (ROADMAP M9).
+Port of fasttrack_tpu/datasets/loaders.py: the EuRoC, TUM-VI and TUM
+RGB-D loaders (pure Python and NumPy). The KITTI loader comes with its
+example script (ROADMAP M9f).
 
 All loaders are lazy: they index timestamps + paths up front and decode
 images on demand (PIL; OpenCV if available). Grayscale float32 output.
@@ -128,3 +128,63 @@ class TumViSequence:
             load_image(self.left_paths[i]),
             load_image(self.right_paths[i]),
         )
+
+
+@dataclass
+class TumRgbdSequence:
+    """TUM RGB-D layout: rgb.txt + depth.txt with '<t> <path>' lines,
+    associated by nearest timestamp (the classic associate.py logic): an
+    RGB frame keeps the depth map nearest in time if it lies within
+    `max_dt` seconds, else the frame is left out. A depth PNG holds 16-bit
+    values that `depth_factor` (5000 in the TUM RGB-D distribution) turns
+    into metres; 0 is no depth."""
+
+    root: str
+    max_dt: float = 0.02
+    timestamps: np.ndarray = field(init=False)
+    rgb_paths: list = field(init=False)
+    depth_paths: list = field(init=False)
+    depth_factor: float = 5000.0
+
+    def __post_init__(self):
+        def read_list(name):
+            out = []
+            with open(os.path.join(self.root, name)) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line or line.startswith("#"):
+                        continue
+                    t, p = line.split()[:2]
+                    out.append((float(t), p))
+            return out
+
+        rgb = read_list("rgb.txt")
+        depth = read_list("depth.txt")
+        dts = np.asarray([t for t, _ in depth])
+        stamps, rgbs, depths = [], [], []
+        for t, p in rgb:
+            j = int(np.argmin(np.abs(dts - t)))
+            if abs(dts[j] - t) <= self.max_dt:
+                stamps.append(t)
+                rgbs.append(os.path.join(self.root, p))
+                depths.append(os.path.join(self.root, depth[j][1]))
+        self.timestamps = np.asarray(stamps)
+        self.rgb_paths = rgbs
+        self.depth_paths = depths
+
+    def __len__(self):
+        return len(self.timestamps)
+
+    def __getitem__(self, i):
+        """(timestamp, grayscale float32 image, float32 depth in metres)."""
+        rgb = load_image(self.rgb_paths[i])
+        try:
+            import cv2
+
+            d = cv2.imread(self.depth_paths[i], cv2.IMREAD_UNCHANGED)
+        except ImportError:
+            from PIL import Image
+
+            d = np.asarray(Image.open(self.depth_paths[i]))
+        depth = d.astype(np.float32) / self.depth_factor
+        return self.timestamps[i], rgb, depth

@@ -16,6 +16,10 @@ datasets instead of the default rectified pinhole pair: a distorted
 fisheye pair as TUM-VI does, camera 2 posed by a rotated T_c1_c2 and the
 IMU stream expressed in a body frame rotated from camera 1. Without `rig`
 the output is bit-equal to the JAX package's renderer.
+
+`render_depth` / `sequence_depths` / `generate_rgbd_sequence` give the
+metric depth map of each rendered pinhole frame from the renderer's own
+geometry (an RGB-D camera's input); the images are the same either way.
 """
 
 from __future__ import annotations
@@ -99,6 +103,7 @@ BODY_YAW_DEG = 90.0
 KB8_FOV_DEG = 75.0
 # fixed-point steps that invert the plumb-bob distortion per pixel
 RADTAN_INVERSE_ITERS = 50
+FG_OFFSET_M = 1.5        # the foreground squares stand this far in front of the plane
 
 
 def _rot(axis: int, angle: float) -> np.ndarray:
@@ -168,18 +173,9 @@ def pixel_rays(kind: str, params, dist, h: int, w: int) -> np.ndarray:
     return np.stack([x, y, np.ones_like(x)], -1)
 
 
-def _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z, camera=None,
-            fg_centers=((0.0, 0.0),), rays=None):
-    """Render a two-depth scene from camera pose (R_wc, t_wc).
-
-    Background plane at z=plane_z plus foreground textured squares at
-    z = plane_z - 1.5, each covering +-1.3 x +-1.0 m around a center in
-    `fg_centers`. A single fronto-parallel plane leaves camera-z nearly
-    unobservable for visual-only pose estimation (~20 px/m here) — the
-    estimate random-walks away and tracking collapses; the depth
-    discontinuity restores full 6-DOF observability, like any real indoor
-    scene. Long loop trajectories pass several centers so depth structure
-    stays in view over the whole lap."""
+def _world_rays(K, R_wc, h, w, camera=None, rays=None):
+    """(dw, tden): every pixel's ray in the world frame, and its world z
+    kept off zero, as the ray-plane intersection divides by it."""
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
     if rays is not None:
         d = rays        # (h, w, 3) per-pixel rays of a camera (pixel_rays)
@@ -193,29 +189,84 @@ def _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z, camera=None,
         )
     dw = d @ R_wc.T  # world direction per pixel
     tden = np.where(np.abs(dw[..., 2]) < 1e-9, 1e-9, dw[..., 2])
+    return dw, tden
 
-    def plane_hit(z_plane):
-        tt = (z_plane - t_wc[2]) / tden
-        px = t_wc[0] + tt * dw[..., 0]
-        py = t_wc[1] + tt * dw[..., 1]
-        return px, py
 
+def _plane_hit(dw, tden, t_wc, z_plane):
+    """(tt, px, py): each ray's parameter at the plane z = z_plane and the
+    world x, y it meets there. A ray whose camera z is 1 (a pinhole ray)
+    meets it at camera depth tt."""
+    tt = (z_plane - t_wc[2]) / tden
+    px = t_wc[0] + tt * dw[..., 0]
+    py = t_wc[1] + tt * dw[..., 1]
+    return tt, px, py
+
+
+def _in_square(px, py, center):
+    """The mask of a foreground square (+-1.3 x +-1.0 m about `center`)."""
+    return (np.abs(px - center[0]) < 1.3) & (np.abs(py - center[1]) < 1.0)
+
+
+def _render(tex, scale_px, K, R_wc, t_wc, h, w, plane_z, camera=None,
+            fg_centers=((0.0, 0.0),), rays=None):
+    """Render a two-depth scene from camera pose (R_wc, t_wc).
+
+    Background plane at z=plane_z plus foreground textured squares at
+    z = plane_z - 1.5, each covering +-1.3 x +-1.0 m around a center in
+    `fg_centers`. A single fronto-parallel plane leaves camera-z nearly
+    unobservable for visual-only pose estimation (~20 px/m here) — the
+    estimate random-walks away and tracking collapses; the depth
+    discontinuity restores full 6-DOF observability, like any real indoor
+    scene. Long loop trajectories pass several centers so depth structure
+    stays in view over the whole lap."""
+    dw, tden = _world_rays(K, R_wc, h, w, camera, rays)
     # background
-    pxb, pyb = plane_hit(plane_z)
+    _, pxb, pyb = _plane_hit(dw, tden, t_wc, plane_z)
     ub = pxb * scale_px + tex.shape[1] / 2
     vb = pyb * scale_px + tex.shape[0] / 2
     img = map_coordinates(tex, [vb, ub], order=1, mode="wrap")
     # foreground squares (offset texture coords decorrelate their pattern)
-    z_near = plane_z - 1.5
-    pxf, pyf = plane_hit(z_near)
-    for k, (cx_f, cy_f) in enumerate(fg_centers):
-        fg = (np.abs(pxf - cx_f) < 1.3) & (np.abs(pyf - cy_f) < 1.0)
+    z_near = plane_z - FG_OFFSET_M
+    _, pxf, pyf = _plane_hit(dw, tden, t_wc, z_near)
+    for k, center in enumerate(fg_centers):
+        fg = _in_square(pxf, pyf, center)
         uf = pxf * scale_px + tex.shape[1] / 2 + tex.shape[1] // 3 \
             + k * (tex.shape[1] // 5)
         vf = pyf * scale_px + tex.shape[0] / 2 + tex.shape[0] // 3
         img_f = map_coordinates(tex, [vf, uf], order=1, mode="wrap")
         img = np.where(fg, img_f, img)
     return img.astype(np.float32)
+
+
+def render_depth(K, R_wc, t_wc, h, w, plane_z, fg_centers=((0.0, 0.0),)) -> np.ndarray:
+    """The metric depth map (camera z, float32) of what `_render` draws
+    through the pinhole `K` from the pose (R_wc, t_wc): each pixel's ray
+    parameter at the foreground square it meets (the same mask as the
+    image's), else at the background plane. A pinhole ray has camera z = 1,
+    so the parameter is the depth. Test data for the RGB-D sensor; the
+    images are not touched."""
+    dw, tden = _world_rays(K, R_wc, h, w)
+    depth, _, _ = _plane_hit(dw, tden, t_wc, plane_z)
+    tt_f, pxf, pyf = _plane_hit(dw, tden, t_wc, plane_z - FG_OFFSET_M)
+    for center in fg_centers:
+        depth = np.where(_in_square(pxf, pyf, center), tt_f, depth)
+    return depth.astype(np.float32)
+
+
+def sequence_depths(seq: SyntheticSequence) -> list:
+    """Camera 1's depth map of every frame of a `generate_sequence` output
+    rendered with its defaults (the pinhole pair, the plane at 4 m, the
+    sweep's one square): one float32 array a frame."""
+    K = np.array([[seq.fx, 0, seq.cx], [0, seq.fy, seq.cy], [0, 0, 1.0]])
+    h, w = seq.frames[0].left.shape
+    return [render_depth(K, f.R_wc, f.t_wc, h, w, 4.0) for f in seq.frames]
+
+
+def generate_rgbd_sequence(n_frames, h, w, fps=20.0, seed=0):
+    """`generate_sequence`'s sweep (its IMU stream, camera 1 as the body
+    frame) with every frame's exact depth map: (sequence, depths)."""
+    seq = generate_sequence(n_frames=n_frames, h=h, w=w, fps=fps, seed=seed)
+    return seq, sequence_depths(seq)
 
 
 def generate_sequence(

@@ -1,9 +1,9 @@
 """The per-frame tracking front end: images -> device-resident FrameData.
 
-Port of fasttrack_tpu/frame_pipeline.py (monocular, rectified and fisheye
-stereo): ORB extraction for one camera or both, rectified stereo matching
-or the fisheye pair's brute-force match and triangulation,
-search-by-projection against
+Port of fasttrack_tpu/frame_pipeline.py (monocular, RGB-D, rectified and
+fisheye stereo): ORB extraction for one camera or both, the depth map's
+value at each keypoint, rectified stereo matching or the fisheye pair's
+brute-force match and triangulation, search-by-projection against
 a local map and motion-only pose optimization. All
 intermediates stay on the images' device and nothing in the chain reads a
 value back to the host; `pack_hot_path_for_host` gathers what the tracker
@@ -75,6 +75,28 @@ def process_mono_frame(image: torch.Tensor, config: OrbConfig) -> FrameData:
     kps, _ = extract_orb(image, config)
     neg = torch.full_like(kps.x, -1.0)
     return FrameData(kps, None, neg, neg, kps.valid.sum())
+
+
+def process_rgbd_frame(
+    image: torch.Tensor,      # (H, W) float32 (uint8 ok, cast on the device)
+    depth_map: torch.Tensor,  # (H, W) float32 metric depth; <= 0 or NaN: none
+    config: OrbConfig,
+    bf: torch.Tensor,         # () float32
+) -> FrameData:
+    """RGB-D frame (Frame.cc RGBD ctor): extraction of the one image, then
+    the depth at each keypoint's pixel (the coordinates truncated as the
+    reference's imDepth.at<float>(v, u) is indexed, clipped to the image)
+    and the synthetic right coordinate u_r = u - bf / z. A keypoint that is
+    not valid or whose depth is not > 0 (NaN included) gets -1 for both.
+    Nothing here reads a value back to the host."""
+    kps, _ = extract_orb(image, config)
+    xi = kps.x.long().clamp(0, config.width - 1)
+    yi = kps.y.long().clamp(0, config.height - 1)
+    z = depth_map[yi, xi]
+    has_depth = kps.valid & (z > 0)
+    u_right = torch.where(has_depth, kps.x - bf / torch.clamp(z, min=1e-6), -1.0)
+    depth = torch.where(has_depth, z, -1.0)
+    return FrameData(kps, None, u_right, depth, kps.valid.sum())
 
 
 def process_stereo_frame_stacked(

@@ -4,18 +4,23 @@ public tracking API + trajectory persistence.
 Port of fasttrack_tpu/system.py for `Sensor.STEREO` and `Sensor.IMU_STEREO`
 over the two rigs the reference's datasets ship: a pinhole pair (EuRoC),
 rectified at start-up when it is distorted, and a Kannala-Brandt-8
-fisheye pair (TUM-VI), which takes the fisheye route; and for
-`Sensor.MONOCULAR` and `Sensor.IMU_MONOCULAR`, one pinhole camera.
+fisheye pair (TUM-VI), which takes the fisheye route; for
+`Sensor.MONOCULAR` and `Sensor.IMU_MONOCULAR`, one pinhole camera; and for
+`Sensor.RGBD` and `Sensor.IMU_RGBD`, one pinhole camera with its metric
+depth map (TUM RGB-D; a RealSense D435i with its IMU).
 Mirrors the reference: the constructor builds Atlas/Tracking/LocalMapping,
-TrackStereo and TrackMonocular are the entry points, then Shutdown and the
-trajectory savers in TUM / EuRoC / KITTI formats (System.cc:590-1285).
+TrackStereo, TrackRGBD and TrackMonocular are the entry points, then
+Shutdown and the trajectory savers in TUM / EuRoC / KITTI formats
+(System.cc:590-1285).
 
 A monocular System initializes from two views and closes loops with the
 scale free (fix_scale=False, a Sim3 loop correction), as the JAX System
 does; with an IMU its map is metric once the IMU initializes, and its loop
-closer keeps the scale fixed. Only stereo sensors are rectified, so a
-monocular camera's distortion coefficients are ignored, with or without an
-IMU, as in the JAX package (ROADMAP F30).
+closer keeps the scale fixed. An RGB-D System is a stereo one from the
+tracker down (its depth makes the keypoints' right coordinates), with the
+scale fixed. Only stereo sensors are rectified, so a monocular or RGB-D
+camera's distortion coefficients are ignored, with or without an IMU, as
+in the JAX package (ROADMAP F30).
 
 Start-up camera transforms, in the JAX package's order: input resize
 (Camera.newWidth / newHeight: the intrinsics scaled once, every frame
@@ -39,9 +44,9 @@ map the Sim3 solver and its refinement project through the pinhole K of
 camera 1's intrinsics, as in the JAX package (ROADMAP F21).
 
 Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: the RGB-D sensors with
-and without an IMU (M9d) and atlas save/load, inertial maps included
-(M9e).
+is asked for, never taking another path quietly: atlas save/load,
+inertial maps included (M9e). Still to come besides: the KITTI example
+(M9f) and the mapper's bundle adjustment over a device mesh (M10).
 """
 
 from __future__ import annotations
@@ -83,7 +88,8 @@ class Sensor(enum.Enum):
 
 _STEREO_SENSORS = (Sensor.STEREO, Sensor.IMU_STEREO)
 _MONO_SENSORS = (Sensor.MONOCULAR, Sensor.IMU_MONOCULAR)
-_NOT_PORTED = {Sensor.RGBD: "M9d", Sensor.IMU_RGBD: "M9d"}
+_RGBD_SENSORS = (Sensor.RGBD, Sensor.IMU_RGBD)
+_INERTIAL_SENSORS = (Sensor.IMU_STEREO, Sensor.IMU_MONOCULAR, Sensor.IMU_RGBD)
 
 
 def _needs_rectification(settings: Settings, sensor: Sensor) -> bool:
@@ -113,10 +119,6 @@ class System:
         vocabulary=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if sensor in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the sensor {sensor.name} is not ported yet (ROADMAP {_NOT_PORTED[sensor]})"
-            )
         if settings.load_atlas or settings.save_atlas:
             raise NotImplementedError(
                 "atlas save/load (System.LoadAtlasFromFile / SaveAtlasToFile) is "
@@ -209,7 +211,7 @@ class System:
             )
         # Inertial calibration (IMU::Calib, ImuTypes.h:46-126) from settings.
         self.imu_calib = None
-        if sensor in (Sensor.IMU_STEREO, Sensor.IMU_MONOCULAR):
+        if sensor in _INERTIAL_SENSORS:
             T_bc = settings.T_b_c1 if settings.T_b_c1 is not None else np.eye(4)
             T_bc = np.asarray(T_bc, np.float64)
             if self._rect is not None:
@@ -292,7 +294,21 @@ class System:
         return remap_bilinear(img, *self._resize_maps[shape])
 
     def track_rgbd(self, img, depth_map, timestamp: float, imu=None):
-        raise RuntimeError("track_rgbd called on non-RGBD sensor config")
+        """One image and its metric depth map (H, W), depth <= 0 or NaN where
+        there is none. With `new_width` / `new_height` both are resized
+        bilinearly, as in the JAX package: the resized depth mixes the
+        depths on either side of an edge into values that lie on neither
+        surface."""
+        if self.sensor not in _RGBD_SENSORS:
+            raise RuntimeError("track_rgbd called on non-RGBD sensor config")
+        if imu:
+            self.tracker_grab_imu(imu)
+        if self._resize_to is not None:
+            t0 = time.perf_counter()
+            img = self._resize_input(img)
+            depth_map = self._resize_input(depth_map)
+            self.stats.record("input_resize", (time.perf_counter() - t0) * 1e3)
+        return self.tracker.track_rgbd(img, depth_map, timestamp)
 
     def track_monocular(self, img, timestamp: float, imu=None):
         if self.sensor not in _MONO_SENSORS:

@@ -1,8 +1,8 @@
 """Tracking front-end: the per-frame state machine (src/Tracking.cc).
 
-Port of fasttrack_tpu/tracking.py for one pinhole camera (visual
-monocular), a rectified pinhole pair and a KB8 fisheye pair, visual and
-stereo-inertial. Host-side
+Port of fasttrack_tpu/tracking.py for one pinhole camera (monocular, or
+RGB-D with its depth map), a rectified pinhole pair and a KB8 fisheye pair,
+each visual or with an IMU. Host-side
 orchestration of the device programs, mirroring the reference's Track()
 control flow (Tracking.cc:1851-2392):
 
@@ -60,8 +60,14 @@ With an IMU (monocular-inertial) its preintegration restarts whenever the
 initializer sets or slides its reference frame, so the second keyframe of
 the init carries the reference-to-current preintegration (ROADMAP F33), and
 until the IMU is initialized it takes a keyframe every 0.25 s and no other
-(F35); after the init it tracks as the stereo-inertial tracker does. The
-RGB-D front end (M9d) raises NotImplementedError with its ROADMAP item.
+(F35); after the init it tracks as the stereo-inertial tracker does.
+
+An RGB-D frame (`track_rgbd`) extracts its one image and reads the depth
+map at each keypoint (frame_pipeline.process_rgbd_frame); from there it is
+a stereo frame: the stereo initialization, the stereo keyframe rule (F12)
+and close points with their depth. Like the JAX tracker it always takes
+the stepwise programs, never the fused frame (ROADMAP F40), and reads no
+toggle of the front end (F41), with an IMU or without.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ from fasttrack_tpu_torch.frame_pipeline import (
     pack_frame_for_host,
     process_fisheye_frame_stacked,
     process_mono_frame,
+    process_rgbd_frame,
     process_stereo_frame_stacked,
 )
 from fasttrack_tpu_torch.fused_track import (
@@ -416,7 +423,18 @@ class Tracker:
         return self._track_prepared(frame, t0)
 
     def track_rgbd(self, img, depth_map, timestamp: float):
-        raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP M9d)")
+        """One image and its metric depth map (depth <= 0 or NaN: none), in
+        ONE float32 host->device transfer of the two stacked. The image is
+        taken as float32, not truncated to uint8, as the JAX package takes
+        it here (unlike the stereo device route, ROADMAP F14). Always the
+        stepwise path, as in the JAX package (ROADMAP F40), and no host
+        route: the toggles of the front end are not read (F41)."""
+        t0 = time.perf_counter()
+        planes = torch.from_numpy(np.stack(
+            [np.asarray(img, np.float32), np.asarray(depth_map, np.float32)]
+        )).to(self.device)
+        fd = process_rgbd_frame(planes[0], planes[1], self.cfg, self._bf_dev)
+        return self._track_frame(fd, timestamp, t0)
 
     def track_monocular(self, img, timestamp: float):
         """One image: ONE uint8 host->device transfer (the cast to float32

@@ -79,6 +79,20 @@ frames and solves each again on the CPU in float32 and in float64, from
 the same inputs: the flipped steps of each (ROADMAP F24, phase 25b):
 
     python -c 'import rig_reading as r; r.keyframe_rule_reading(); r.inertial_window_reading()'
+
+`rgbd_reading("jax" | "torch", inertial, scene)` reads the RGB-D System
+(`Sensor.RGBD`, or `Sensor.IMU_RGBD` with the exact 200 Hz IMU stream and
+T_b_c1 = I) on the rendered sweep with its exact depth maps
+(datasets.synthetic.generate_rgbd_sequence), inline, on the CPU: scene
+"chip" is phases 26a-b's (TUM1.yaml's 640x480 at 30 fps, 1000 features, 8
+levels, bf 40, ThDepth 40, seed 3, the shipped vocabulary; 60 frames, 80
+with the IMU), "test" tests/test_torch_rgbd.py's (320x240 at 20 fps, 512
+features, 4 levels, the same bf and ThDepth, seed 3, no vocabulary; 30
+frames, 50 with the IMU). It prints a line per frame and one JSON object:
+the states, the IMU init frame, keyframes, map points, and the SE(3) ATE
+over all frames:
+
+    JAX_PLATFORMS=cpu python -c 'from rig_reading import rgbd_reading as r; r("jax")'
 """
 
 import argparse
@@ -88,13 +102,21 @@ import time
 
 import numpy as np
 
+import chip_smoke
 from chip_smoke import (
     KB8_FOV_DEG,
     H,
+    RGBD_FEATURES,
+    RGBD_FPS,
+    RGBD_H,
+    RGBD_SEED,
+    RGBD_W,
     W,
     KB8_PLANE_Z,
     KB8_SIZE,
     N_MONO_FRAMES,
+    N_RGBD_FRAMES,
+    N_RGBD_INERTIAL_FRAMES,
     N_RIG_FRAMES,
     N_SYSTEM_FRAMES,
 )
@@ -713,6 +735,92 @@ def inertial_window_reading(seq=None, n_frames=N_MONO_FRAMES):
     print(json.dumps({"windows": len(rows), **{k: sum(r[k] for r in rows) for k in (
         "flipped_card", "flipped_cpu_f32", "flipped_cpu_f64")}}), flush=True)
     return rows
+
+
+RGBD_SCENES = {
+    # h, w, fps, features, levels, vocabulary, frames (visual, inertial)
+    "chip": (RGBD_H, RGBD_W, RGBD_FPS, RGBD_FEATURES, 8, None,
+             (N_RGBD_FRAMES, N_RGBD_INERTIAL_FRAMES)),
+    "test": (240, 320, 20.0, 512, 4, False, (30, 50)),
+}
+
+
+def rgbd_settings(package, seq, h, w, features, levels, inertial):
+    """chip_smoke.rgbd_settings (TUM1.yaml's RGB-D settings for the
+    renderer's pinhole at (h, w)) in either package, on the CPU."""
+    port = chip_smoke.rgbd_settings(seq, "cpu", inertial, (h, w), features, levels)
+    if package == "torch":
+        return port
+    import dataclasses
+
+    from fasttrack_tpu.cameras import make_pinhole
+    from fasttrack_tpu.settings import Settings
+
+    kw = {f.name: getattr(port, f.name) for f in dataclasses.fields(port) if f.name != "camera1"}
+    return Settings(camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, w, h), **kw)
+
+
+def rgbd_reading(package, inertial=False, scene="chip"):
+    """One package's RGB-D System over `scene` on the CPU; prints a line per
+    frame and one JSON object, which it returns."""
+    from fasttrack_tpu_torch.datasets import synthetic
+    from fasttrack_tpu_torch.evaluation import absolute_trajectory_error
+
+    h, w, fps, features, levels, vocabulary, frames = RGBD_SCENES[scene]
+    n_frames = frames[int(inertial)]
+    seq, depths = synthetic.generate_rgbd_sequence(n_frames, h, w, fps=fps, seed=RGBD_SEED)
+    settings = rgbd_settings(package, seq, h, w, features, levels, inertial)
+    voc = {} if vocabulary is None else {"vocabulary": vocabulary}
+    if package == "jax":
+        from fasttrack_tpu.system import Sensor, System
+
+        system = System(settings, Sensor.IMU_RGBD if inertial else Sensor.RGBD, **voc)
+    else:
+        from fasttrack_tpu_torch.system import Sensor, System
+
+        system = System(settings, Sensor.IMU_RGBD if inertial else Sensor.RGBD, device="cpu",
+                        **voc)
+    t_prev, init, states = -1.0, None, []
+    t0 = time.perf_counter()
+    for i, (f, d) in enumerate(zip(seq.frames, depths)):
+        imu = None
+        if inertial:
+            sel = np.where((seq.imu_t > t_prev) & (seq.imu_t <= f.timestamp))[0]
+            imu = [(float(seq.imu_t[j]), seq.imu_acc[j], seq.imu_gyro[j]) for j in sel]
+        system.track_rgbd(f.left, d, f.timestamp, imu=imu)
+        t_prev = f.timestamp
+        states.append(system.tracker.state.name)
+        if init is None and system.atlas.current.imu_initialized:
+            init = i
+        lf = system.tracker.last_frame
+        err = (float(np.linalg.norm(-lf.R_cw.T @ lf.t_cw - f.t_wc))
+               if lf is not None and lf.R_cw is not None else None)
+        print(f"frame {i} {states[-1]} keyframes {system.atlas.current.n_keyframes()} "
+              f"centre error {err}", flush=True)
+    system.shutdown()
+    traj = system.tracker.trajectory
+
+    def ate(part):
+        if len(part) < 3:
+            return None
+        return absolute_trajectory_error(np.asarray([t for t, _, _ in part]),
+                                         np.asarray([-R.T @ t for _, R, t in part]),
+                                         seq.gt_t, seq.gt_pos)["rmse"]
+
+    gt = np.asarray(seq.gt_pos)
+    out = {"package": package, "scene": scene, "inertial": inertial, "frames": n_frames,
+           "states": "".join(s[0] for s in states), "frames_ok": states.count("OK"),
+           "init_frame": states.index("OK") if "OK" in states else None,
+           "imu_init_frame": init,
+           "bg": np.asarray(system.tracker.bias[0], np.float64).tolist(),
+           "keyframes": system.atlas.current.n_keyframes(),
+           "map_points": system.atlas.current.n_mappoints(),
+           "ate_rmse_m": ate(traj),
+           "ate_rmse_after_imu_init_m": None if init is None else ate(traj[init + 1:]),
+           "rms_motion_m": float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean())),
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def main():

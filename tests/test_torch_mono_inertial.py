@@ -618,7 +618,8 @@ def test_the_system_takes_the_mono_route_with_an_imu(seq):
     tracker and mapper that share it, a loop closer with the scale fixed
     (the IMU observes it; fasttrack_tpu/system.py:160-162), no
     rectification even for a distorted pair, and takes samples through
-    track_monocular; IMU_RGBD still raises, naming M9d."""
+    track_monocular; IMU_RGBD (M9d) builds from the same settings with the
+    same calibration, a tracker and mapper that are not monocular."""
     from fasttrack_tpu_torch.cameras import make_pinhole
     from fasttrack_tpu_torch.system import Sensor, System
 
@@ -637,8 +638,10 @@ def test_the_system_takes_the_mono_route_with_an_imu(seq):
     with pytest.raises(RuntimeError, match="non-stereo"):
         system.track_stereo(seq.frames[0].left, seq.frames[0].right, 0.1)
     system.shutdown()
-    with pytest.raises(NotImplementedError, match="M9d"):
-        System(s, Sensor.IMU_RGBD, vocabulary=False, device="cpu")
+    rgbd = System(s, Sensor.IMU_RGBD, vocabulary=False, device="cpu")
+    np.testing.assert_array_equal(rgbd.imu_calib.R_bc.numpy(), cal.R_bc.numpy())
+    assert rgbd.tracker.use_imu and not rgbd.tracker.monocular and not rgbd.local_mapper.monocular
+    assert rgbd._rect is None and rgbd.tracker.stereo_rig is None
 
 
 def test_the_scale_refinement_needs_a_chain(seq):

@@ -243,8 +243,6 @@ def _settings(**kw):
 
 
 LEFT_OUT = {
-    "IMU_RGBD": (dict(), dict(sensor=Sensor.IMU_RGBD), "M9d"),
-    "RGBD": (dict(), dict(sensor=Sensor.RGBD), "M9d"),
     "load_atlas": (dict(load_atlas="a.osa"), dict(), "M9e"),
     "save_atlas": (dict(save_atlas="a.osa"), dict(), "M9e"),
 }
@@ -257,6 +255,29 @@ def test_left_out_branch_raises_with_its_item(name):
     kw.update(system_kw)
     with pytest.raises(NotImplementedError, match=item):
         System(_settings(**settings_kw), **kw)
+
+
+@pytest.mark.parametrize("sensor", [Sensor.RGBD, Sensor.IMU_RGBD], ids=["RGBD", "IMU_RGBD"])
+def test_rgbd_sensor_builds_and_tracks(sensor, ran):
+    """The RGB-D sensors (M9d) build and track the first rendered frame
+    with its depth map through track_rgbd: a stereo initialization, a
+    tracker and mapper that are not monocular, a calibration with the IMU
+    only; the other entry points refuse them."""
+    seq = ran[0]
+    s = _settings(n_features=512, T_b_c1=np.eye(4))
+    system = System(s, sensor, vocabulary=False, device="cpu")
+    assert not system.tracker.monocular and not system.local_mapper.monocular
+    assert (system.imu_calib is not None) == (sensor is Sensor.IMU_RGBD)
+    f = seq.frames[0]
+    depth = synthetic.sequence_depths(seq._replace(frames=seq.frames[:1]))[0]
+    imu = [(0.0, np.zeros(3), np.array([0.0, 0.0, 9.81]))] if sensor is Sensor.IMU_RGBD else None
+    assert system.track_rgbd(f.left, depth, f.timestamp, imu=imu) is not None
+    assert system.tracking_state.name == "OK" and system.atlas.current.n_mappoints() > 100
+    with pytest.raises(RuntimeError, match="non-stereo"):
+        system.track_stereo(f.left, f.right, 0.1)
+    with pytest.raises(RuntimeError, match="non-mono"):
+        system.track_monocular(f.left, 0.1)
+    system.shutdown()
 
 
 def test_monocular_system_takes_the_mono_route(monkeypatch):

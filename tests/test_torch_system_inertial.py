@@ -299,14 +299,16 @@ def test_system_builds_the_calibration_from_the_settings(seq):
     # the samples reach the tracker's queue
     system.tracker_grab_imu([(0.1, np.ones(3), np.zeros(3))])
     assert len(system.tracker.imu_queue) == 1
-    # the monocular-inertial sensor (M9c) builds the same calibration; the
-    # RGB-D one still raises, naming M9d
+    # the monocular-inertial (M9c) and RGB-D-inertial (M9d) sensors build
+    # the same calibration
     mono = System(ts, Sensor.IMU_MONOCULAR, vocabulary=False, device="cpu")
     np.testing.assert_array_equal(mono.imu_calib.R_bc.numpy(), R.astype(np.float32))
     assert (mono.imu_calib.noise_gyro, mono.imu_calib.freq) == (2e-4, 400.0)
     assert mono.tracker.use_imu and mono.tracker.monocular and mono.local_mapper.monocular
-    with pytest.raises(NotImplementedError, match="M9d"):
-        System(ts, Sensor.IMU_RGBD, vocabulary=False, device="cpu")
+    rgbd = System(ts, Sensor.IMU_RGBD, vocabulary=False, device="cpu")
+    np.testing.assert_array_equal(rgbd.imu_calib.R_bc.numpy(), R.astype(np.float32))
+    assert (rgbd.imu_calib.noise_gyro, rgbd.imu_calib.freq) == (2e-4, 400.0)
+    assert rgbd.tracker.use_imu and not rgbd.tracker.monocular
     for call in (system.save_atlas, system.load_atlas):
         with pytest.raises(NotImplementedError, match="M9"):
             call("a.osa")

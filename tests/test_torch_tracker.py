@@ -584,16 +584,27 @@ def test_monocular_tracker_builds_and_resets_its_initializer():
     assert tr._init_reference is None and tr.state.name == "NOT_INITIALIZED"
 
 
-@pytest.mark.parametrize("call, item", [
-    (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),
-    (lambda tr, img: tr.track_rgbd(img, img, 0.0), "M9"),   # with samples queued
-], ids=["track_rgbd", "track_rgbd_after_grab_imu"])
-def test_left_out_entry_points_raise(call, item):
+@pytest.mark.parametrize("queued", [False, True], ids=["track_rgbd", "track_rgbd_after_grab_imu"])
+def test_rgbd_entry_point_initializes_from_the_depth_map(seq, queued):
+    """track_rgbd (M9d) on the first rendered frame and its exact depth map:
+    the stereo initialization from the keypoints with a depth, one
+    keyframe and a point for each of them. A visual tracker keeps queued
+    IMU samples and does not read them, as the JAX Tracker does."""
     tr = tracking.Tracker(_cam(), CFG, 28.0, Atlas(), device="cpu")
-    tr.grab_imu([(0.0, np.zeros(3), np.zeros(3))])     # queues, as the JAX Tracker does
-    assert len(tr.imu_queue) == 1
-    with pytest.raises(NotImplementedError, match=item):
-        call(tr, np.zeros((H, W), np.uint8))
+    if queued:
+        tr.grab_imu([(0.0, np.zeros(3), np.zeros(3))])     # queues, as the JAX Tracker does
+    f = seq.frames[0]
+    depth = synthetic.sequence_depths(seq._replace(frames=seq.frames[:1]))[0]
+    pose = tr.track_rgbd(f.left, depth, f.timestamp)
+    assert tr.state.name == "OK" and pose is not None
+    assert len(tr.imu_queue) == int(queued)
+    lf = tr.last_frame
+    good = lf.valid & (lf.depth > 0)
+    assert good.sum() > 100 and tr.atlas.current.n_keyframes() == 1
+    assert tr.atlas.current.n_mappoints() == good.sum()
+    # every depth the frame took is the map's value at its keypoint's pixel
+    xi, yi = lf.kp_uv[good].astype(np.int64).T
+    np.testing.assert_array_equal(lf.depth[good], depth[yi, xi])
 
 
 HOST_PATH_SERIES = ("orb_extraction", "tracking_total", "twm", "tlm", "trk")
