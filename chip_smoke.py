@@ -234,23 +234,47 @@ Phases, each printing a line; any failure raises and exits non-zero:
    overlap, u_right and depth equal on the common keypoints), and 26a's
    frames up to its second keyframe (its first fusion) through the default
    System on both: states, keyframes, camera centres within 1e-3 m.
+27. atlas save and load (M9e) and the KITTI driver (M9f): (a) phase 17's
+   atlas, saved after its frame 59, loaded into a new default System that
+   tracks frames 50-71: the loaded counts equal the saved ones, re-acquired
+   within 3 frames and OK from then on, the ATE over the resumed frames
+   (<= 0.02 m), both kernels launched after the load; the same frames
+   through a new System in localization mode (no keyframe added); the
+   card-written file loaded into System(device="cpu") and saved again,
+   equal array for array, neither file naming anything but NumPy; (b)
+   phase 21b's atlas, written by its shutdown (Settings.save_atlas), loaded
+   through Settings.load_atlas by a new System(Sensor.IMU_STEREO) on frames
+   50-64 of phase 13's sequence with their IMU samples: IMU-initialized,
+   the bias the saved newest keyframe's, every frame OK from the third on,
+   the ATE (<= 0.02 m; ROADMAP F45); (c) examples/torch_kitti_stereo.py
+   in this process at KITTI00-02.yaml's setting (1241x376, 10 fps, 2000
+   features, 8 levels, FAST 20/7, ThDepth 35, baseline 0.537 m) on 20
+   rendered frames written in KITTI's layout: every frame OK, 20 lines of
+   f_traj_kitti.txt, the ATE (<= 0.02 m and twice the JAX package's
+   paired reading, KITTI_JAX), both kernels' launches by shape, each top-K
+   shape one that phase 3 holds.
 
-Phase 3 also times torch._int_mm of the +-1 descriptors at the matrix
-kernel's four shapes: the int8 product the kernel computes in its body
+Phase 3 also holds both kernels at phase 27c's KITTI shapes (top-K at
+2000 x 2000 with K 64 and K 2, 4096 x 2000 and 20480 x 2048; the matrix at
+541 x 2000 and 167 x 2000), and times torch._int_mm of the +-1 descriptors
+at the matrix kernel's shapes: the int8 product the kernel computes in its body
 (Hamming = (256 - q.k) / 2), without the penalties, as its library
 yardstick.
 
 Phases 8 to 12 and 15 share one rendered sequence: phase 8 tracks its first 40
 frames with no mapper, so that its ATE stands beside the system's over the
 same frames. Phases 13, 16 and 21b share another; phase 19b adjusts phase
-13's map. Phases 26a-c share the RGB-D scene.
+13's map. Phases 26a-c share the RGB-D scene. Phase 27a loads phase 17's
+atlas, 27b phase 21b's; 27c's KITTI layout is rendered and written in the
+renderer's process, into a temporary directory with the atlas files.
 
 The line before the last two is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Each kernel's `launches` is what the
-twenty-six paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
+twenty-nine paths (phases 4, 6, 8, 10, 13, 15, 16, 17, 18a, 18b, 19a, 20a,
 20b, 21a, 21b, 22a, 22b, 23a, 23b's card run, 24a, 24b's card run, 25a's
-two, 26a, 26b and 26c's card run) launched, counted from 0 at each path's
-start (phase 19b launches neither); `launches_relocalization` and
+two, 26a, 26b, 26c's card run, 27a, 27b and 27c) launched, counted from 0
+at each path's start (phase 19b launches neither; 27a counts its tracking
+after the load, not its localization-mode run); `launches_relocalization` and
 `launches_loop_closing` are the part of phases 17-18 that relocalization
 and the loop closer made, and `launches_merge` the part of phases 20a and
 20b that `_merge_maps` made (the top-K kernel's K = 2 verification, the
@@ -263,8 +287,13 @@ import concurrent.futures
 import dataclasses
 import json
 import multiprocessing
+import os
+import pickle
+import runpy
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -332,7 +361,14 @@ STEP = (3, 5)  # (dy, dx) px the view moves per frame: content moves (-5, -3)
 TOP_K = 64
 FUSION_SHAPE = (3000, 1024)     # candidate points x keypoints of a fusion's reverse pass
 # the tracker's shapes, PERF.md's 4096 x 1024 row, a ragged one and a fusion's
-MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (4096, 1024), (1200, 1000), FUSION_SHAPE]
+# KITTI's widths (phase 27c, 2,000 features a camera): the stereo match,
+# TWM and the reference-keyframe match at 2000 x 2000, TLM at 4096 x 2000,
+# the triangulation's 10 neighbours of 2,048-row capacity; the matrix at the
+# two fusions of PR 14's call A
+KITTI_FUSION_SHAPES = [(541, 2000), (167, 2000)]
+KITTI_TOPK_SHAPES = [(2000, 2000, 64), (2000, 2000, 2), (4096, 2000, 64), (20480, 2048, 64)]
+MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (4096, 1024), (1200, 1000), FUSION_SHAPE,
+                 *KITTI_FUSION_SHAPES]
 EPI_ROWS = 10 * 1024            # the mapper's 10 neighbour keyframes, stacked
 # (M, N, kind of input, K); 33 x 40 has N < K. "validity": what match_fisheye
 # gives the kernel (penalties 0 or 1e9, invalid rows tie across all columns).
@@ -340,7 +376,9 @@ TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 102
               (1200, 1000, "random", 64), (33, 40, "random", 64), (1024, 1024, "tied", 64),
               (1024, 1024, "validity", 2), (1000, 900, "validity", 2), (1024, 1024, "tied", 2),
               (EPI_ROWS, 1024, "validity", 64), (1024, 4096, "words", 1),
-              (1024, 4096, "validity", 1), (700, 64, "tied", 1)]
+              (1024, 4096, "validity", 1), (700, 64, "tied", 1),
+              (2000, 2000, "random", 64), (2000, 2000, "validity", 2), (4096, 2000, "random", 64),
+              (20480, 2048, "validity", 64)]
 # K = 1: the flat vocabulary's quantization (bow/vocabulary.py:_assign), the
 # shipped flat vocabulary's 4096 words at the kernel's MAX_N, zero penalties
 CHUNKED_SHAPE = (1024, 5000)    # K = 1 past MAX_N: a wider flat vocabulary in two launches
@@ -495,6 +533,32 @@ N_RGBD_CPU_FRAMES = 6           # phase 26c, if 26a made fewer than two keyframe
 RGBD_JAX = {"frames_ok": 60, "keyframes": 6, "ate_m": 0.006312, "imu_init_frame": 65,
             "ate_inertial_m": 0.006586}
 RGBD_ATE_FACTOR = 2
+# Phases 27a-c: atlas save and load (M9e), the KITTI driver (M9f). 27a: the
+# default System of phase 17 saved after frames 0-59, loaded into a new
+# System that tracks frames 50-71 (from the sequence's middle, on past the
+# saved map's last frame): 22 frames, because a tracker over a map it knows
+# makes its first keyframe by the 20-frame spacing rule (max_frames), at
+# the 21st frame, and only a keyframe runs the mapper's fusion, the matrix
+# kernel; 27b: phase 21b's stereo-inertial System saved on shutdown after
+# its 50 frames, loaded through Settings.load_atlas and fed frames 50-64
+# with their IMU samples (its second frame is a keyframe: ROADMAP F45)
+N_ATLAS_FROM, N_ATLAS_FRAMES, N_ATLAS_INERTIAL_FRAMES = 50, 22, 15
+ATLAS_REACQUIRE_FRAMES = 3      # 27a: re-acquired within this many resumed frames
+ATLAS_INERTIAL_OK_FROM = 2      # 27b: every resumed frame OK from the third on
+# 27c: KITTI's published stereo setting, ORB-SLAM3's Examples/Stereo/
+# KITTI00-02.yaml (1241x376 at 10 fps, 2000 features, 8 levels, scale 1.2,
+# FAST 20/7, ThDepth 35, baseline 0.537 m), over 20 frames of the rendered
+# sweep with the renderer's own pinhole (fx = 0.8 w; KITTI's is 718.856),
+# written in KITTI's layout and run through examples/torch_kitti_stereo.py
+KITTI_W, KITTI_H, KITTI_FPS, KITTI_BASELINE = 1241, 376, 10.0, 0.537
+N_KITTI_FRAMES = 20
+KITTI_FEATURES, KITTI_LEVELS, KITTI_SCALE, KITTI_FAST, KITTI_TH_DEPTH = 2000, 8, 1.2, (20, 7), 35.0
+# 27c's paired reading: the JAX package's examples/kitti_stereo.py on the same
+# layout, on the card's host CPU (rig_reading.kitti_reading("jax"), PR 14
+# call A, an NVIDIA H100 machine's host: every frame tracked, 0.012363 m);
+# the port's ATE limit is twice its ATE, and at most ATE_LIMIT_M
+KITTI_JAX = {"ate_m": 0.012363490489364401, "frames_ok": 20, "trajectory_lines": 20}
+KITTI_ATE_FACTOR = 2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -1083,7 +1147,9 @@ def reset_launch_counts():
     kern.launches = 0
     kern.launches_by_k.clear()
     kern.launches_by_rows.clear()
+    kern.launches_by_shape.clear()
     hamming_kernel.hamming_penalty_matrix.launches = 0
+    hamming_kernel.hamming_penalty_matrix.launches_by_shape.clear()
     return kern
 
 
@@ -1460,18 +1526,19 @@ def phase_system_async(device, seq, card):
 
 
 def make_inertial_system(seq, device, kernel_config=None, vocabulary=False,
-                         async_mapping=False) -> System:
+                         async_mapping=False, save_atlas=None, load_atlas=None) -> System:
     """The stereo-inertial system at full width, built directly (no YAML):
     the renderer's body frame is the left camera's (T_b_c1 = I) and its IMU
     stream is exact at 200 Hz; the noise densities are the settings'
     defaults (EuRoC's). Phases 13 and 21b run its default configuration,
     the shipped vocabulary (vocabulary=None); phase 16 runs without place
-    recognition, the input its bound was set on."""
+    recognition, the input its bound was set on. Phase 21b saves its atlas
+    on shutdown (Settings.save_atlas), 27b loads it (Settings.load_atlas)."""
     settings = Settings(
         camera1=make_pinhole(seq.fx, seq.fy, seq.cx, seq.cy, W, H, device=device),
         bf=seq.fx * seq.baseline, baseline=seq.baseline, width=W, height=H,
         n_features=CFG.n_features, n_levels=CFG.n_levels, scale_factor=CFG.scale_factor,
-        T_b_c1=np.eye(4), imu_frequency=200.0,
+        T_b_c1=np.eye(4), imu_frequency=200.0, save_atlas=save_atlas, load_atlas=load_atlas,
     )
     return System(settings, Sensor.IMU_STEREO, kernel_config=kernel_config,
                   async_mapping=async_mapping, vocabulary=vocabulary, device=device)
@@ -2021,10 +2088,12 @@ def centre_error(seq, R_cw, t_cw, i) -> float:
     return float(np.linalg.norm(-R_cw.T @ t_cw - R0.T @ (seq.frames[i].t_wc - t0)))
 
 
-def phase_relocalization(device, seq, card):
+def phase_relocalization(device, seq, card, atlas_path):
     """Relocalization on the card: the default System over phase 10's
     sequence, lost on blank frames, then shown the start of the sequence
-    again (tests/test_tracking_e2e.py's offset view at full size)."""
+    again (tests/test_tracking_e2e.py's offset view at full size). Its atlas
+    after the tracked frames goes to `atlas_path` (phase 27a loads it);
+    returns its keyframe and map-point counts besides the launches."""
     kern = reset_launch_counts()
     matrix = hamming_kernel.hamming_penalty_matrix
     system = make_system(seq, device, vocabulary=None)
@@ -2044,6 +2113,10 @@ def phase_relocalization(device, seq, card):
     for i, r in enumerate(log):
         check(r["state"] == "OK", f"phase 17 frame {i}: state {r['state']}")
     n_maps, n_kf = system.atlas.n_maps(), system.atlas.current.n_keyframes()
+    t0 = time.perf_counter()
+    system.save_atlas(atlas_path)
+    saved = {"keyframes": n_kf, "mappoints": system.atlas.current.n_mappoints(),
+             "save_ms": (time.perf_counter() - t0) * 1e3, "bytes": os.path.getsize(atlas_path)}
     tracked = tracker.last_frame      # frame N_RELOC_TRACKED - 1, for the direct check below
     blank = np.full_like(seq.frames[0].left, 127)
     t = seq.frames[N_RELOC_TRACKED - 1].timestamp
@@ -2105,9 +2178,11 @@ def phase_relocalization(device, seq, card):
         f"{[int(x) for x in series['reloc_inliers']]}; top-k launches at K = 2 by relocalization "
         f"{reloc_launches}; loops closed {system.loop_closer.n_loops_closed}; top-k kernel "
         f"launches {kern.launches} ({dict(kern.launches_by_k)} by K), matrix kernel launches "
-        f"{matrix.launches}"
+        f"{matrix.launches}; atlas after frame {N_RELOC_TRACKED - 1} saved: {saved['keyframes']} "
+        f"keyframes, {saved['mappoints']} map points, {saved['bytes']} bytes in "
+        f"{saved['save_ms']:.1f} ms"
     )
-    return kern.launches, matrix.launches, reloc_launches
+    return kern.launches, matrix.launches, reloc_launches, saved
 
 
 def phase_loop_closing_map(device, card):
@@ -2608,14 +2683,16 @@ def phase_loop_threads(device, card):
     return closer_launches
 
 
-def phase_system_inertial_async(device, seq, card):
+def phase_system_inertial_async(device, seq, card, atlas_path):
     """(b) The stereo-inertial System in its default configuration with
     mapping on its own thread: the tracker's thread, the mapper's and the
     loop closer's (and a global BA's, if a loop closes) share the card and
-    the map."""
+    the map. Its settings name `atlas_path` to save the atlas to on
+    shutdown (phase 27b loads it)."""
     kern = reset_launch_counts()
     matrix = hamming_kernel.hamming_penalty_matrix
-    system = make_inertial_system(seq, device, vocabulary=None, async_mapping=True)
+    system = make_inertial_system(seq, device, vocabulary=None, async_mapping=True,
+                                  save_atlas=atlas_path)
     mapper, lc = system.local_mapper, system.loop_closer
     inserted, inner = [], mapper.insert_keyframe
 
@@ -2644,6 +2721,7 @@ def phase_system_inertial_async(device, seq, card):
     alive = [name for name, t in (("mapper", mapper._thread), ("loop closer", lc._thread),
                                   ("global BA", lc._gba_thread)) if t is not None and t.is_alive()]
     check(not alive and mapper.queue_size() == 0, f"phase 21b: alive after shutdown: {alive}")
+    check(os.path.isfile(atlas_path), f"phase 21b: shutdown wrote no atlas to {atlas_path}")
     check(lc.n_thread_errors == 0, f"phase 21b: {lc.n_thread_errors} thread errors")
     check(system.atlas.current.imu_initialized, "phase 21b: the IMU never initialized")
     processed = int(sum(system.stats.series["lm_keyframes"]))
@@ -3511,6 +3589,309 @@ def phase_rgbd_card_vs_cpu(device, scene, card, log_a):
     return launches
 
 
+# ------------------------------------------------------- phases 27a-c (M9e, M9f)
+def numpy_only_load(path):
+    """Unpickle an atlas file that may name NumPy and nothing else: no torch
+    object, no class of either package."""
+    class NumpyOnly(pickle.Unpickler):
+        def find_class(self, module, name):
+            check(module.split(".")[0] == "numpy", f"{module}.{name} in the atlas file {path}")
+            return super().find_class(module, name)
+
+    with open(path, "rb") as f:
+        return NumpyOnly(f).load()
+
+
+def tree_differences(a, b, path="file", out=None):
+    """Where two atlas trees differ in keys, types, dtypes, shapes or values
+    (exact, NaN equal to NaN); an empty list if nowhere."""
+    out = [] if out is None else out
+    if type(a) is not type(b):
+        out.append(f"{path}: {type(a).__name__} != {type(b).__name__}")
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            out.append(f"{path}: keys differ")
+        for k in set(a) & set(b):
+            tree_differences(a[k], b[k], f"{path}[{k!r}]", out)
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            out.append(f"{path}: lengths {len(a)} != {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            tree_differences(x, y, f"{path}[{i}]", out)
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            out.append(f"{path}: arrays differ ({a.dtype} {a.shape}, {b.dtype} {b.shape})")
+    elif not (a == b or (isinstance(a, float) and np.isnan(a) and np.isnan(b))):
+        out.append(f"{path}: {a!r} != {b!r}")
+    return out
+
+
+def resume_run(system, frames):
+    """The resumed frames through `system` at their rendered timestamps; a
+    row per frame as tracker_step gives it."""
+    return [tracker_step(system.tracker, f, entry=system) for f in frames]
+
+
+def phase_atlas_reuse(device, seq, card, atlas_path, saved):
+    """(a) A visual map reused on the card: phase 17's atlas (the default
+    System after frames 0-59) loaded into a new default System, which
+    tracks frames 50-71: the loaded counts equal the saved ones, re-acquired
+    within ATLAS_REACQUIRE_FRAMES frames and OK from then on, the ATE over
+    the resumed frames, both kernels launched after the load; the same
+    frames again through a new System in localization mode (no keyframe
+    added); the card-written file loaded into System(device="cpu") and
+    saved again: the two files equal array for array, neither naming
+    anything but NumPy."""
+    frames = seq.frames[N_ATLAS_FROM:N_ATLAS_FROM + N_ATLAS_FRAMES]
+    system = make_system(seq, device, vocabulary=None)
+    t0 = time.perf_counter()
+    system.load_atlas(atlas_path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    m = system.atlas.current
+    check((m.n_keyframes(), m.n_mappoints()) == (saved["keyframes"], saved["mappoints"]),
+          f"phase 27a: loaded {m.n_keyframes()} keyframes and {m.n_mappoints()} points, saved "
+          f"{saved['keyframes']} and {saved['mappoints']}")
+    check(system.tracking_state.name == "RECENTLY_LOST", f"phase 27a: {system.tracking_state.name} after the load")
+    check(len(system.loop_closer.db.kf_bows) == m.n_keyframes(),
+          "phase 27a: the keyframe database does not hold every loaded keyframe")
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    rows = resume_run(system, frames)
+    system.shutdown()
+    topk, mat, by_k = kern.launches, matrix.launches, dict(kern.launches_by_k)
+    states = [r["state"] for r in rows]
+    check("OK" in states[:ATLAS_REACQUIRE_FRAMES],
+          f"phase 27a: not re-acquired within {ATLAS_REACQUIRE_FRAMES} frames: {states}")
+    back = states.index("OK")
+    check(all(x == "OK" for x in states[back:]), f"phase 27a: lost after re-acquiring: {states}")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["n"] == len(frames) - back and ate["rmse"] <= ATE_LIMIT_M,
+          f"phase 27a: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} resumed frames, limit {ATE_LIMIT_M}")
+    check(topk > 0 and mat > 0, f"phase 27a: {topk} top-k and {mat} matrix launches after the load")
+    added = system.atlas.current.n_keyframes() - saved["keyframes"]
+    ms = [r["ms"] for r in rows[back + 1:]]
+
+    # the same frames in localization mode: the map is frozen
+    local = make_system(seq, device, vocabulary=None)
+    local.load_atlas(atlas_path)
+    local.activate_localization_mode()
+    loc_rows = resume_run(local, frames)
+    local.shutdown()
+    loc_states = [r["state"] for r in loc_rows]
+    check(local.atlas.current.n_keyframes() == saved["keyframes"],
+          f"phase 27a: localization mode added {local.atlas.current.n_keyframes() - saved['keyframes']} keyframes")
+    check("OK" in loc_states, f"phase 27a: localization mode never re-acquired: {loc_states}")
+
+    # the card's file on the CPU
+    state = numpy_only_load(atlas_path)
+    cpu = make_system(seq, "cpu", vocabulary=None)
+    cpu.load_atlas(atlas_path)
+    again = atlas_path + ".cpu"
+    cpu.save_atlas(again)
+    cpu.shutdown()
+    diffs = tree_differences(numpy_only_load(again), state)
+    check(not diffs, f"phase 27a: the card's atlas loaded on the CPU differs: {diffs[:5]}")
+    print(
+        f"phase 27a atlas reused on {card}: phase 17's atlas ({saved['keyframes']} keyframes, "
+        f"{saved['mappoints']} map points, {saved['bytes']} bytes) loaded in {load_ms:.1f} ms into "
+        f"a new System(Sensor.STEREO) with the shipped vocabulary; frames {N_ATLAS_FROM}-"
+        f"{N_ATLAS_FROM + N_ATLAS_FRAMES - 1}: states {''.join(x[0] for x in states)}, re-acquired at "
+        f"resumed frame {back} ({rows[back]['ms']:.1f} ms), keyframes added {added}; ATE RMSE "
+        f"{ate['rmse']:.4f} m over {ate['n']} frames (limit {ATE_LIMIT_M}); ms/frame after it median "
+        f"{np.median(ms):.1f}, p90 {np.percentile(ms, 90):.1f}; top-k launches {topk} "
+        f"({by_k} by K), matrix launches {mat}; localization mode: states "
+        f"{''.join(x[0] for x in loc_states)}, no keyframe added; the file loaded on the CPU and "
+        f"saved again: equal array for array, NumPy only"
+    )
+    return topk, mat
+
+
+def phase_atlas_inertial(device, seq, card, atlas_path):
+    """(b) An inertial map through the settings path: phase 21b's atlas,
+    written by its shutdown, loaded by a new System(Sensor.IMU_STEREO) whose
+    settings name it, which resumes on frames 50-64 of phase 13's sequence
+    with their IMU samples: the map IMU-initialized after the load, the
+    restored bias the saved newest keyframe's, every frame OK from the
+    third on, the ATE over the resumed frames; the re-acquiring frame, |bg|
+    and ms/frame printed (ROADMAP F45: the tracker tracks visually until its
+    first keyframe after the load, then inertially)."""
+    state = numpy_only_load(atlas_path)
+    md = state["maps"][-1]
+    newest = md["keyframes"][max(md["keyframes"])]
+    t0 = time.perf_counter()
+    system = make_inertial_system(seq, device, vocabulary=None, load_atlas=atlas_path)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    m, tr = system.atlas.current, system.tracker
+    check(m.imu_initialized, "phase 27b: the loaded map is not IMU-initialized")
+    check(np.array_equal(tr.bias[0], newest["imu_bias"][0])
+          and np.array_equal(tr.bias[1], newest["imu_bias"][1]),
+          "phase 27b: the restored bias is not the saved newest keyframe's")
+    check(tr.imu_anchor_stale and tr.last_kf_id == max(md["keyframes"]),
+          "phase 27b: the tracker's IMU anchor was not restored")
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    frames = seq.frames[N_ASYNC_INERTIAL_FRAMES:N_ASYNC_INERTIAL_FRAMES + N_ATLAS_INERTIAL_FRAMES]
+    inertial = []
+    rows = []
+    t_prev = seq.frames[N_ASYNC_INERTIAL_FRAMES - 1].timestamp
+    for f in frames:
+        rows.append(tracker_step(tr, f, entry=system, imu=imu_between(seq, t_prev, f.timestamp)))
+        inertial.append(tr._imu_ready())
+        t_prev = f.timestamp
+    system.shutdown()
+    topk, mat = kern.launches, matrix.launches
+    states = [r["state"] for r in rows]
+    check(all(x == "OK" for x in states[ATLAS_INERTIAL_OK_FROM:]),
+          f"phase 27b: not every frame OK from resumed frame {ATLAS_INERTIAL_OK_FROM} on: {states}")
+    back = states.index("OK")
+    ate = trajectory_ate(system.tracker.trajectory, seq)
+    check(ate["rmse"] <= ATE_LIMIT_M,
+          f"phase 27b: ATE RMSE {ate['rmse']:.4f} m over {ate['n']} resumed frames, limit {ATE_LIMIT_M}")
+    check(topk > 0 and mat > 0, f"phase 27b: {topk} top-k and {mat} matrix launches after the load")
+    bg = float(np.linalg.norm(tr.bias[0]))
+    ms = [r["ms"] for r in rows[back + 1:]]
+    first_inertial = inertial.index(True) if True in inertial else None
+    print(
+        f"phase 27b inertial atlas on {card}: phase 21b's atlas written by its shutdown "
+        f"({len(md['keyframes'])} keyframes, {len(md['mappoints'])} map points), loaded through "
+        f"Settings.load_atlas by System(Sensor.IMU_STEREO) in {build_ms:.1f} ms (construction "
+        f"included): IMU-initialized, bias restored (|bg| {np.linalg.norm(newest['imu_bias'][0]):.5f}); "
+        f"frames {N_ASYNC_INERTIAL_FRAMES}-{N_ASYNC_INERTIAL_FRAMES + N_ATLAS_INERTIAL_FRAMES - 1} "
+        f"with IMU: "
+        f"states {''.join(x[0] for x in states)}, re-acquired at resumed frame {back}, inertial "
+        f"again from resumed frame {first_inertial} (after the first keyframe of this run, "
+        f"ROADMAP F45); |bg| {bg:.5f} at the end; ATE RMSE {ate['rmse']:.4f} m over {ate['n']} "
+        f"frames (limit {ATE_LIMIT_M}); ms/frame after the re-acquisition median "
+        f"{np.median(ms):.1f}, p90 {np.percentile(ms, 90):.1f}; top-k launches {topk}, matrix "
+        f"launches {mat}"
+    )
+    return topk, mat
+
+
+KITTI_YAML = """%YAML:1.0
+---
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {fx}
+Camera1.fy: {fy}
+Camera1.cx: {cx}
+Camera1.cy: {cy}
+Camera.width: {w}
+Camera.height: {h}
+Camera.fps: {fps}
+Camera.RGB: 1
+Stereo.ThDepth: {th_depth}
+Stereo.b: {b}
+ORBextractor.nFeatures: {features}
+ORBextractor.scaleFactor: {scale}
+ORBextractor.nLevels: {levels}
+ORBextractor.iniThFAST: {fast0}
+ORBextractor.minThFAST: {fast1}
+"""
+
+
+def write_kitti_layout(root):
+    """Render phase 27c's sequence and write it in KITTI's odometry layout
+    under `root`: image_0/%06d.png and image_1/%06d.png (8-bit), times.txt,
+    the settings file KITTI.yaml (File.version 1.0) and the renderer's
+    trajectory as gt.txt in the TUM format. Returns `root`. Runs in the
+    renderer's process."""
+    from PIL import Image
+
+    from fasttrack_tpu_torch.nputils import matrix_to_quat
+
+    seq = generate_sequence(n_frames=N_KITTI_FRAMES, h=KITTI_H, w=KITTI_W, fps=KITTI_FPS,
+                            baseline=KITTI_BASELINE)
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, cam), exist_ok=True)
+    times, gt = [], []
+    for i, f in enumerate(seq.frames):
+        for cam, img in (("image_0", f.left), ("image_1", f.right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
+                os.path.join(root, cam, f"{i:06d}.png"))
+        times.append(f"{f.timestamp:.6e}")
+        q = matrix_to_quat(f.R_wc)
+        p = f.t_wc
+        gt.append(f"{f.timestamp:.6f} {p[0]:.9f} {p[1]:.9f} {p[2]:.9f} "
+                  f"{q[1]:.9f} {q[2]:.9f} {q[3]:.9f} {q[0]:.9f}")
+    with open(os.path.join(root, "times.txt"), "w") as fh:
+        fh.write("\n".join(times) + "\n")
+    with open(os.path.join(root, "gt.txt"), "w") as fh:
+        fh.write("\n".join(gt) + "\n")
+    with open(os.path.join(root, "KITTI.yaml"), "w") as fh:
+        fh.write(KITTI_YAML.format(
+            fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy, w=KITTI_W, h=KITTI_H, fps=KITTI_FPS,
+            th_depth=KITTI_TH_DEPTH, b=KITTI_BASELINE, features=KITTI_FEATURES,
+            scale=KITTI_SCALE, levels=KITTI_LEVELS, fast0=KITTI_FAST[0], fast1=KITTI_FAST[1]))
+    return root
+
+
+def phase_kitti(device, card, root):
+    """(c) KITTI at KITTI's size: examples/torch_kitti_stereo.py run in this
+    process with its arguments on phase 27c's layout (the card by
+    default): every frame OK, f_traj_kitti.txt with a line a frame, the
+    SE(3) ATE, both kernels launched; ms/frame and the launches at each
+    shape."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                          "torch_kitti_stereo.py")
+    out = os.path.join(root, "out")
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    states = []
+    main_fn = runpy.run_path(script)["main"]
+    inner = System.track_stereo
+
+    def track_stereo(self, *a, **kw):     # what the driver's frames did, as they went
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(self, *a, **kw)
+        states.append((self.tracking_state.name, (time.perf_counter() - t0) * 1e3))
+        return res
+
+    System.track_stereo = track_stereo
+    try:
+        system = main_fn([os.path.join(root, "KITTI.yaml"), root, "--out", out,
+                          "--gt", os.path.join(root, "gt.txt")])
+    finally:
+        System.track_stereo = inner
+    topk, mat = kern.launches, matrix.launches
+    shapes_topk, shapes_matrix = dict(kern.launches_by_shape), dict(matrix.launches_by_shape)
+    check(system.device.type == "cuda", f"phase 27c: the driver ran on {system.device}")
+    check([x for x, _ in states] == ["OK"] * N_KITTI_FRAMES,
+          f"phase 27c: states {[x for x, _ in states]}")
+    rows = np.loadtxt(os.path.join(out, "f_traj_kitti.txt"))
+    check(rows.shape == (N_KITTI_FRAMES, 12), f"phase 27c: f_traj_kitti.txt holds {rows.shape}")
+    with open(os.path.join(out, "ate.json")) as fh:
+        ate = json.load(fh)
+    limit = min(ATE_LIMIT_M, KITTI_ATE_FACTOR * KITTI_JAX["ate_m"])
+    check(ate["ate_rmse"] <= limit and ate["n_associated"] == N_KITTI_FRAMES,
+          f"phase 27c: ATE RMSE {ate['ate_rmse']:.4f} m over {ate['n_associated']} frames, limit "
+          f"{limit} (KITTI_JAX {KITTI_JAX})")
+    check(topk > 0 and mat > 0, f"phase 27c: {topk} top-k and {mat} matrix launches")
+    # the top-K kernel's shapes are fixed capacities: each was held to its
+    # plain version in phase 3; the matrix's rows follow the map
+    held = {(M, N, K) for M, N, _, K in TOPK_CASES}
+    check(set(shapes_topk) <= held,
+          f"phase 27c: top-k shapes not held in phase 3: {sorted(set(shapes_topk) - held)}")
+    unheld_matrix = sorted(set(shapes_matrix) - set(MATRIX_SHAPES))
+    ms = [t for _, t in states[2:]]
+    m = system.atlas.current
+    print(
+        f"phase 27c KITTI at KITTI's size on {card}: examples/torch_kitti_stereo.py over "
+        f"{N_KITTI_FRAMES} rendered frames at {KITTI_W}x{KITTI_H}, {KITTI_FPS} fps, baseline "
+        f"{KITTI_BASELINE} m, {KITTI_FEATURES} features, {KITTI_LEVELS} levels (KITTI00-02.yaml's "
+        f"setting, the renderer's fx): every frame OK, {m.n_keyframes()} keyframes, "
+        f"{m.n_mappoints()} map points; f_traj_kitti.txt {rows.shape[0]} lines; ATE RMSE "
+        f"{ate['ate_rmse']:.4f} m (limit {limit}; the JAX package's reading {KITTI_JAX}); ms/frame "
+        f"median {np.median(ms):.1f}, p90 {np.percentile(ms, 90):.1f} over {len(ms)} frames "
+        f"(System.track_stereo's calls); top-k launches {topk} by (M, N, K) "
+        f"{ {str(k): v for k, v in sorted(shapes_topk.items())} }, matrix launches {mat} by (M, N) "
+        f"{ {str(k): v for k, v in sorted(shapes_matrix.items())} } (of them not among phase 3's "
+        f"shapes: {unheld_matrix})"
+    )
+    return topk, mat, shapes_topk, shapes_matrix
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -3543,14 +3924,23 @@ def main():
             renderer.submit(synthetic.generate_rgbd_sequence, N_RGBD_INERTIAL_FRAMES, RGBD_H,
                             RGBD_W, fps=RGBD_FPS, seed=RGBD_SEED),
         )
-        run_phases(device, kind, card, t_start, renderer, *sequences)
+        # the atlas files of phases 17, 21b and 27a and phase 27c's KITTI
+        # layout go to a temporary directory, removed at the end
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            kitti = renderer.submit(write_kitti_layout, os.path.join(work, "kitti"))
+            run_phases(device, kind, card, t_start, renderer, *sequences, kitti, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, loop_seq,
-               radtan_seq, kb8_seq, rgbd_scene):
-    """Phases 2-26, then the kernels line and the last lines; `renderer` is
-    the renderer's process pool, and the arguments after it are the futures
-    of the rendered sequences."""
+               radtan_seq, kb8_seq, rgbd_scene, kitti_layout, work):
+    """Phases 2-27, then the kernels line and the last lines; `renderer` is
+    the renderer's process pool, the arguments after it are the futures of
+    the rendered sequences and of the KITTI layout, and `work` the
+    temporary directory of the atlas files."""
+    atlas17, atlas21 = os.path.join(work, "phase17.osa"), os.path.join(work, "phase21b.osa")
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3618,7 +4008,8 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 11's check")
 
     # 17. relocalization, 18. loop closing (a: a drifted map, b: the System over a loop)
-    reloc_all, reloc_matrix, reloc_launches = phase_relocalization(device, seq, card)
+    reloc_all, reloc_matrix, reloc_launches, reloc_saved = phase_relocalization(
+        device, seq, card, atlas17)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 17")
     map_launches, k13_launches, k13_ms = phase_loop_closing_map(device, card)
     loop_all, loop_matrix, loop_lc = phase_loop_closing_system(device, card, loop_seq)
@@ -3636,7 +4027,7 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
     merge_sys_all, merge_sys_matrix, merge_sys = phase_map_merge_system(device, card, loop_seq)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 20")
     threads_lc = phase_loop_threads(device, card)
-    async_i_launches, async_i_matrix = phase_system_inertial_async(device, seq_i, card)
+    async_i_launches, async_i_matrix = phase_system_inertial_async(device, seq_i, card, atlas21)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 21")
 
     # 22. EuRoC's distorted pair (a: stereo-inertial, rectified; b: resized),
@@ -3680,6 +4071,18 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
     del scene, rgbd_log
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 26")
 
+    # 27. atlas save and load, the KITTI driver (a: a visual map reused; b:
+    # an inertial map through the settings; c: KITTI at KITTI's size)
+    atlas_launches, atlas_matrix = phase_atlas_reuse(device, seq, card, atlas17, reloc_saved)
+    atlas_i_launches, atlas_i_matrix = phase_atlas_inertial(device, seq_i, card, atlas21)
+    t0 = time.perf_counter()
+    kitti_root = kitti_layout.result()
+    print(f"rendered {N_KITTI_FRAMES} frames at {KITTI_W}x{KITTI_H} in KITTI's layout (waited "
+          f"{time.perf_counter() - t0:.1f} s for them)")
+    kitti_launches, kitti_matrix, kitti_shapes, kitti_matrix_shapes = phase_kitti(
+        device, card, kitti_root)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 27")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -3697,7 +4100,7 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
             + merge_sys_all + threads_lc["topk"] + async_i_launches + rect_launches
             + resize_launches + fish_launches + fish_cpu_launches + mono_launches
             + mono_cpu_launches + mi_launches + rgbd_launches + rgbd_i_launches
-            + rgbd_cpu_launches,
+            + rgbd_cpu_launches + atlas_launches + atlas_i_launches + kitti_launches,
             "launches_hot_path": hot_launches,
             "launches_fused_step": fused_launches,
             "launches_tracker": tracker_launches,
@@ -3737,6 +4140,12 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
             "launches_rgbd": rgbd_launches,
             "launches_rgbd_inertial": rgbd_i_launches,
             "launches_rgbd_cpu": rgbd_cpu_launches,
+            # phase 27: after an atlas load (a: visual, b: inertial), the
+            # KITTI driver (c), with its launches by (M, N, K)
+            "launches_atlas": atlas_launches,
+            "launches_atlas_inertial": atlas_i_launches,
+            "launches_kitti": kitti_launches,
+            "launches_kitti_by_shape": {str(k): v for k, v in sorted(kitti_shapes.items())},
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -3763,6 +4172,9 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
                        "replaced_ms", "matrix_plus_torch_argmin_ms")},
                    "chunked": {"shape": list(CHUNKED_SHAPE), "mismatches": chunked_bad,
                                **chunked}},
+            # at KITTI's widths (phase 27c's shapes, held in phase 3)
+            "kitti": {f"{M}x{N}, K {K}": {key: topk_rows[(M, N, K)][key] for key in timed + (
+                "replaced_ms", "matrix_plus_torch_topk_ms")} for M, N, K in KITTI_TOPK_SHAPES},
             # its third: the local mapper's triangulation, 10 neighbour keyframes stacked
             "triangulation": {"shape": [EPI_ROWS, 1024], "k": TOP_K,
                               "launches_system": system_epi,
@@ -3780,7 +4192,8 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
             + map_launches["matrix"] + loop_matrix + inertial_loop["matrix"]
             + merge_all["matrix"] + merge_sys_matrix + threads_lc["matrix"] + async_i_matrix
             + rect_matrix + resize_matrix + fish_matrix + fish_cpu_matrix + mono_matrix
-            + mono_cpu_matrix + mi_matrix + rgbd_matrix + rgbd_i_matrix + rgbd_cpu_matrix,
+            + mono_cpu_matrix + mi_matrix + rgbd_matrix + rgbd_i_matrix + rgbd_cpu_matrix
+            + atlas_matrix + atlas_i_matrix + kitti_matrix,
             "on_a_driven_path": system_matrix > 0 and inertial_matrix > 0,
             "launches_hot_path": hot_matrix,
             "launches_fused_step": fused_matrix,
@@ -3810,6 +4223,10 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
             "launches_rgbd": rgbd_matrix,
             "launches_rgbd_inertial": rgbd_i_matrix,
             "launches_rgbd_cpu": rgbd_cpu_matrix,
+            "launches_atlas": atlas_matrix,
+            "launches_atlas_inertial": atlas_i_matrix,
+            "launches_kitti": kitti_matrix,
+            "launches_kitti_by_shape": {str(k): v for k, v in sorted(kitti_matrix_shapes.items())},
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -3825,6 +4242,9 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
                                     for M, N in MATRIX_SHAPES},
             "fusion": {"shape": list(FUSION_SHAPE),
                        **{key: fusion[key] for key in timed + ("library_ms",)}},
+            "kitti_fusion": {f"{M}x{N}": {key: matrix_rows[(M, N)][key]
+                                          for key in timed + ("library_ms",)}
+                             for M, N in KITTI_FUSION_SHAPES},
         },
     ]}))
     check(inertial_launches > 0 and inertial_matrix > 0,
@@ -3843,7 +4263,9 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
           "a kernel was not launched on the paths of phase 25")
     check(min(rgbd_launches, rgbd_matrix, rgbd_i_launches, rgbd_i_matrix, rgbd_cpu_launches,
               rgbd_cpu_matrix) > 0, "a kernel was not launched on the paths of phase 26")
-    print(f"chip_smoke: all 26 phases passed in {time.perf_counter() - t_start:.1f} s")
+    check(min(atlas_launches, atlas_matrix, atlas_i_launches, atlas_i_matrix, kitti_launches,
+              kitti_matrix) > 0, "a kernel was not launched on the paths of phase 27")
+    print(f"chip_smoke: all 27 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,10 +1,12 @@
-"""fasttrack_tpu_torch — fasttrack_tpu's stereo and stereo-inertial SLAM system
-in PyTorch.
+"""fasttrack_tpu_torch — fasttrack_tpu's visual and visual-inertial SLAM
+system in PyTorch: stereo, monocular and RGB-D, each with or without an IMU.
 
 A port of the JAX package `fasttrack_tpu` to PyTorch and CUDA on an NVIDIA
 Hopper GPU: the tracking front end, the local mapping back end (triangulation,
 fusion, local bundle adjustment, and with an IMU its initialization and the
-inertial bundle adjustments) and the `System` facade over them.
+inertial bundle adjustments), place recognition, the `System` facade over
+them with its atlas save and load, the dataset drivers and the headless
+viewer. Still to come: the mapper's bundle adjustment over several devices.
 Module paths mirror `fasttrack_tpu/` file for file; public functions keep
 the JAX package's signatures and array layouts (x/y as separate (N,)
 tensors, signed descriptors as (N, 256) int8 +-1, packed descriptors as
@@ -29,3 +31,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+
+from fasttrack_tpu_torch.kernels import KernelConfig, Stage  # noqa: E402,F401

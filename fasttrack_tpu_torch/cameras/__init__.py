@@ -16,5 +16,13 @@ from fasttrack_tpu_torch.cameras.models import (  # noqa: F401
     make_kannala_brandt8,
     make_pinhole,
     project,
+    project_jacobian,
+    project_point,
+    uncertainty2,
     unproject,
+)
+from fasttrack_tpu_torch.cameras.stereo import (  # noqa: F401
+    StereoRig,
+    make_rectified_rig,
+    triangulate_matches,
 )

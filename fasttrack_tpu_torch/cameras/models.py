@@ -77,6 +77,10 @@ def project(cam: Camera, X: torch.Tensor) -> torch.Tensor:
     raise ValueError(cam.kind)
 
 
+def project_point(cam: Camera, X: torch.Tensor) -> torch.Tensor:
+    return project(cam, X)
+
+
 def _unproject_kb8(params, mx, my, iters: int = 10):
     """Invert theta_d = theta * poly(theta^2) by a fixed number of Newton
     steps from theta_d clamped to +-pi/2 (KannalaBrandt8.cpp:111-176 uses

@@ -1,9 +1,10 @@
 """Sequence sources: the synthetic renderer (datasets/synthetic.py) and the
-EuRoC, TUM-VI and TUM RGB-D directory loaders (datasets/loaders.py)."""
+EuRoC, TUM-VI, KITTI and TUM RGB-D directory loaders (datasets/loaders.py)."""
 
 from fasttrack_tpu_torch.datasets.loaders import (  # noqa: F401
     EurocSequence,
     ImuData,
+    KittiSequence,
     TumRgbdSequence,
     TumViSequence,
     load_image,

@@ -1,8 +1,7 @@
 """Dataset directory loaders (the reference's Examples/*/ LoadImages code).
 
-Port of fasttrack_tpu/datasets/loaders.py: the EuRoC, TUM-VI and TUM
-RGB-D loaders (pure Python and NumPy). The KITTI loader comes with its
-example script (ROADMAP M9f).
+Port of fasttrack_tpu/datasets/loaders.py: the EuRoC, TUM-VI, KITTI and
+TUM RGB-D loaders (pure Python and NumPy).
 
 All loaders are lazy: they index timestamps + paths up front and decode
 images on demand (PIL; OpenCV if available). Grayscale float32 output.
@@ -118,6 +117,33 @@ class TumViSequence:
         self.left_paths = [os.path.join(cam0, s + ".png") for s in stamps]
         self.right_paths = [os.path.join(cam1, s + ".png") for s in stamps]
         self.imu = _read_imu_csv(self.root)
+
+    def __len__(self):
+        return len(self.timestamps)
+
+    def __getitem__(self, i):
+        return (
+            self.timestamps[i],
+            load_image(self.left_paths[i]),
+            load_image(self.right_paths[i]),
+        )
+
+
+@dataclass
+class KittiSequence:
+    """KITTI odometry layout: image_0/<%06d>.png, image_1/, times.txt."""
+
+    root: str
+    timestamps: np.ndarray = field(init=False)
+    left_paths: list = field(init=False)
+    right_paths: list = field(init=False)
+
+    def __post_init__(self):
+        with open(os.path.join(self.root, "times.txt")) as f:
+            self.timestamps = np.asarray([float(x) for x in f if x.strip()])
+        n = len(self.timestamps)
+        self.left_paths = [os.path.join(self.root, "image_0", f"{i:06d}.png") for i in range(n)]
+        self.right_paths = [os.path.join(self.root, "image_1", f"{i:06d}.png") for i in range(n)]
 
     def __len__(self):
         return len(self.timestamps)

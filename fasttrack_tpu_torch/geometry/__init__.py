@@ -5,12 +5,25 @@
 - Sim3: NamedTuple (R, t, s); tangent [rho, phi, sigma] (..., 7).
 """
 
-from fasttrack_tpu_torch.geometry.so3 import hat, so3_exp, so3_log, vee  # noqa: F401
+from fasttrack_tpu_torch.geometry.so3 import (  # noqa: F401
+    hat,
+    matrix_to_quat,
+    normalize_rotation,
+    quat_to_matrix,
+    so3_exp,
+    so3_left_jacobian,
+    so3_log,
+    so3_right_jacobian,
+    vee,
+)
 from fasttrack_tpu_torch.geometry.se3 import (  # noqa: F401
     SE3,
+    se3_adjoint,
     se3_apply,
+    se3_boxplus,
     se3_compose,
     se3_exp,
+    se3_from_matrix,
     se3_identity,
     se3_inverse,
     se3_log,

@@ -13,6 +13,7 @@ import torch
 
 from fasttrack_tpu_torch.device import resolve
 from fasttrack_tpu_torch.geometry.so3 import (
+    hat,
     so3_exp,
     so3_left_jacobian,
     so3_left_jacobian_inv,
@@ -73,3 +74,20 @@ def se3_matrix(T: SE3) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.t.dtype, device=T.t.device)
     top = torch.cat([T.R, T.t[..., None]], dim=-1)
     return torch.cat([top, bottom.expand(*batch, 1, 4)], dim=-2)
+
+
+def se3_from_matrix(M: torch.Tensor) -> SE3:
+    return SE3(M[..., :3, :3], M[..., :3, 3])
+
+
+def se3_adjoint(T: SE3) -> torch.Tensor:
+    """(..., 6, 6) adjoint: Ad_T = [[R, t^ R], [0, R]]."""
+    tR = hat(T.t) @ T.R
+    top = torch.cat([T.R, tR], dim=-1)
+    bot = torch.cat([torch.zeros_like(T.R), T.R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_boxplus(T: SE3, xi: torch.Tensor) -> SE3:
+    """Left-multiplicative update exp(xi) o T, the optimizer retraction."""
+    return se3_compose(se3_exp(xi), T)

@@ -120,3 +120,57 @@ def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
 def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
     """Inverse right Jacobian (IMU::InverseRightJacobianSO3)."""
     return so3_left_jacobian_inv(-phi)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) [w, x, y, z] -> rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack(
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1
+    )
+    row1 = torch.stack(
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1
+    )
+    row2 = torch.stack(
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1
+    )
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) [w, x, y, z],
+    with w >= 0.
+
+    Branch-free Shepperd-style method: compute all four candidate quaternions
+    and select the one keyed to the largest of (trace, R00, R11, R22). The
+    host copy the trajectory savers use is nputils.matrix_to_quat.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+
+    keys = torch.stack([tr, m00, m11, m22], dim=-1)
+    idx = torch.argmax(keys, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4, 4)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[
+        ..., 0, :
+    ]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation matrix back onto SO(3) (ImuTypes
+    NormalizeRotation semantics) via SVD, with a reflection turned back."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    flip = torch.ones_like(R[..., 0, :])
+    flip[..., -1] = torch.where(det < 0, -1.0, 1.0)
+    return (u * flip[..., None, :]) @ vt

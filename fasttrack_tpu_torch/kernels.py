@@ -26,6 +26,15 @@ reference's static-before-System idiom.
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class Stage(enum.Enum):
+    ORB_EXTRACTION = "orb_extraction"
+    STEREO_MATCH = "stereo_match"
+    SEARCH_LOCAL_POINTS = "search_local_points"
+    POSE_ESTIMATION = "pose_estimation"
+    POSE_OPTIMIZATION = "pose_optimization"
 
 
 @dataclasses.dataclass
@@ -62,6 +71,9 @@ class KernelConfig:
             pose_estimation=mask[3] == "1",
             pose_optimization=pose_optimization,
         )
+
+    def offloaded(self, stage: Stage) -> bool:
+        return bool(getattr(self, stage.value))
 
 
 # Module-level default, mirroring KernelController::setGPURunMode's

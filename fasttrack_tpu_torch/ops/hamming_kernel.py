@@ -134,6 +134,7 @@ def hamming_penalty_matrix(q_desc, kp_desc, q_pen, kp_pen):
         msg = lib.hamming_penalty_error_string(err).decode()
         raise RuntimeError(f"hamming_penalty kernel launch failed: {msg} ({err})")
     hamming_penalty_matrix.launches += 1
+    hamming_penalty_matrix.launches_by_shape[M, N] += 1
     return out
 
 
@@ -178,16 +179,20 @@ def hamming_penalty_topk(q_desc, kp_desc, q_pen, kp_pen, k):
     hamming_penalty_topk.launches += 1
     hamming_penalty_topk.launches_by_k[K] += 1
     hamming_penalty_topk.launches_by_rows[M] += 1
+    hamming_penalty_topk.launches_by_shape[M, N, K] += 1
     return values, indices
 
 
 # Kernel launches since the count was last set to 0 (CPU calls not counted);
 # for the top-K kernel also by list length K (64 in the window and epipolar
 # matchers, 2 in match_fisheye) and by the number of query rows M (10240 in
-# the local mapper's batched triangulation), cleared with `.clear()`. Plain
+# the local mapper's batched triangulation), and for both by shape ((M, N)
+# and (M, N, K)), cleared with `.clear()`. Plain
 # attributes: where two threads launch (the tracker's and an asynchronous
 # mapper's), an update can be lost, so read them after an inline run.
 hamming_penalty_matrix.launches = 0
+hamming_penalty_matrix.launches_by_shape = collections.Counter()
 hamming_penalty_topk.launches = 0
 hamming_penalty_topk.launches_by_k = collections.Counter()
 hamming_penalty_topk.launches_by_rows = collections.Counter()
+hamming_penalty_topk.launches_by_shape = collections.Counter()

@@ -43,23 +43,38 @@ a lost tracker relocalizes against the keyframe database they share.
 map the Sim3 solver and its refinement project through the pinhole K of
 camera 1's intrinsics, as in the JAX package (ROADMAP F21).
 
-Not ported, each raising NotImplementedError with its ROADMAP item when it
-is asked for, never taking another path quietly: atlas save/load,
-inertial maps included (M9e). Still to come besides: the KITTI example
-(M9f) and the mapper's bundle adjustment over a device mesh (M10).
+Atlas save and load (System::SaveAtlas / LoadAtlas, System.cc:1424-1560)
+write and read the JAX package's pickle, key for key and dtype for dtype:
+every field is a NumPy array, a Python scalar, a dict, a set or None, never
+a torch tensor, so a file written on the card loads on the CPU and either
+package's file loads in the other. A load rebuilds each map's point store,
+marks the maps inertial as the file says (the only place that does, as in
+the JAX package: ROADMAP F16) and leaves the tracker RECENTLY_LOST against
+the newest keyframe, so the next frame relocalizes; with an IMU and an
+initialized map it also restores the bias, the velocity and the last
+keyframe's body state, and tracks visually until its first keyframe after
+the load (ROADMAP F45). What the file does not hold starts afresh, as in
+the JAX package (ROADMAP F43): the map's full-inertial-BA flags, each
+point's visible and found counters, and the keyframes' feature vectors.
+
+Not ported, raising NotImplementedError with its ROADMAP item when it is
+asked for, never taking another path quietly: the mapper's bundle
+adjustment over a device mesh (M10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import pickle
 import time
+import types
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary
+from fasttrack_tpu_torch.bow.vocabulary import load_default_vocabulary, vocabulary_checksum
 from fasttrack_tpu_torch.cameras.host import host_camera
 from fasttrack_tpu_torch.cameras.models import Camera
 from fasttrack_tpu_torch.cameras.rectify import compute_rectification, remap_bilinear, resize_maps
@@ -72,9 +87,48 @@ from fasttrack_tpu_torch.loop_closing import LoopCloser
 from fasttrack_tpu_torch.nputils import matrix_to_quat
 from fasttrack_tpu_torch.ops.extractor import OrbConfig
 from fasttrack_tpu_torch.settings import Settings
-from fasttrack_tpu_torch.slam_map import Atlas
+from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, Map, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 from fasttrack_tpu_torch.tracking import Tracker, TrackingState
+
+
+def _host(x):
+    """A field as the atlas file holds it: a tensor becomes its NumPy array
+    (on the host), containers are converted item by item, the rest stays."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_host(v) for v in x)
+    if isinstance(x, list):
+        return [_host(v) for v in x]
+    return x
+
+
+def _pre_to_dict(p):
+    """Host preintegration snapshot -> plain dict (pickle-stable): the JAX
+    package's keys, without avgA / avgW, which its file does not hold."""
+    if p is None:
+        return None
+    return {
+        "dT": p.dT, "dR": p.dR, "dV": p.dV, "dP": p.dP,
+        "JRg": p.JRg, "JVg": p.JVg, "JVa": p.JVa, "JPg": p.JPg, "JPa": p.JPa,
+        "C": p.C, "bg": p.b0.bg, "ba": p.b0.ba,
+    }
+
+
+def _pre_from_dict(d):
+    """The snapshot back, as the JAX package rebuilds it: a namespace with
+    the same fields (readers take avgA / avgW with a default of zero)."""
+    if d is None:
+        return None
+    return types.SimpleNamespace(
+        dT=d["dT"], dR=d["dR"], dV=d["dV"], dP=d["dP"],
+        JRg=d["JRg"], JVg=d["JVg"], JVa=d["JVa"], JPg=d["JPg"], JPa=d["JPa"],
+        C=d["C"],
+        b0=types.SimpleNamespace(bg=d["bg"], ba=d["ba"]),
+    )
 
 
 class Sensor(enum.Enum):
@@ -119,11 +173,6 @@ class System:
         vocabulary=None,
         device=None,            # None: the card (device.resolve); "cpu" for the CPU
     ):
-        if settings.load_atlas or settings.save_atlas:
-            raise NotImplementedError(
-                "atlas save/load (System.LoadAtlasFromFile / SaveAtlasToFile) is "
-                "not ported yet (ROADMAP M9e)"
-            )
         self.device = resolve(device)
         settings = dataclasses.replace(settings)    # the caller's stays as it was
         self.settings = settings
@@ -265,6 +314,8 @@ class System:
             self.tracker.vocabulary = self.vocabulary
             self.loop_closer.tracker = self.tracker
             self.loop_closer.local_mapper = self.local_mapper
+        if settings.load_atlas:
+            self.load_atlas(settings.load_atlas)
 
     # ------------------------------------------------------------- tracking
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
@@ -341,16 +392,169 @@ class System:
         self.tracker.localization_only = False
 
     def shutdown(self):
-        """System::Shutdown (System.cc:520-560): stop the worker threads."""
+        """System::Shutdown (System.cc:520-560): stop the worker threads,
+        then persist the atlas if configured."""
         self.local_mapper.stop()
         if self.loop_closer is not None:
             self.loop_closer.stop()
+        if self.settings.save_atlas:
+            self.save_atlas(self.settings.save_atlas)
 
+    # ----------------------------------------------------------- atlas io
     def save_atlas(self, path: str):
-        raise NotImplementedError("atlas save is not ported yet (ROADMAP M9e)")
+        """System::SaveAtlas: a pickle of the id graph, the JAX package's
+        schema (fasttrack_tpu/system.py save_atlas) with every field on the
+        host."""
+        state = {
+            "maps": [],
+            "next_ids": (
+                self.atlas._next_map_id,
+                self.atlas._next_kf_id,
+                self.atlas._next_mp_id,
+            ),
+            # MD5 vocabulary guard (System.cc:1424-1464): a map's BoW vectors
+            # are meaningless under a different vocabulary, so refuse on load.
+            "vocab_checksum": vocabulary_checksum(self.vocabulary),
+        }
+        for m in self.atlas.maps:
+            state["maps"].append(_host({
+                "map_id": m.map_id,
+                "init_kf_id": m.init_kf_id,
+                "imu_initialized": m.imu_initialized,
+                "is_inertial": m.is_inertial,
+                "keyframes": {
+                    k.kid: {
+                        "frame_id": k.frame_id,
+                        "timestamp": k.timestamp,
+                        "R_cw": k.R_cw, "t_cw": k.t_cw,
+                        "kp_uv": k.kp_uv, "kp_level": k.kp_level,
+                        "kp_angle": k.kp_angle,
+                        "desc_packed": k.desc_packed,
+                        "desc_signed": k.desc_signed,
+                        "u_right": k.u_right, "depth": k.depth,
+                        "valid": k.valid, "mp_ids": k.mp_ids,
+                        "covisible": k.covisible,
+                        "parent_id": k.parent_id,
+                        "children": k.children,
+                        # inertial chain and place-recognition state
+                        # (System.cc:1424-1560 serializes these too)
+                        "velocity": k.velocity,
+                        "imu_bias": k.imu_bias,
+                        "prev_kf_id": k.prev_kf_id,
+                        "next_kf_id": k.next_kf_id,
+                        "preintegrated": _pre_to_dict(k.preintegrated),
+                        "bow_vec": k.bow_vec,
+                        "loop_edges": k.loop_edges,
+                        "merge_edges": k.merge_edges,
+                    }
+                    for k in m.keyframes.values()
+                },
+                "mappoints": {
+                    p.mid: {
+                        "position": p.position,
+                        "normal": p.normal,
+                        "desc_packed": p.desc_packed,
+                        "desc_signed": p.desc_signed,
+                        "observations": p.observations,
+                        "ref_kf_id": p.ref_kf_id,
+                        "first_kf_id": p.first_kf_id,
+                        "min_distance": p.min_distance,
+                        "max_distance": p.max_distance,
+                    }
+                    for p in m.mappoints.values()
+                },
+            }))
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
 
     def load_atlas(self, path: str):
-        raise NotImplementedError("atlas load is not ported yet (ROADMAP M9e)")
+        """System::LoadAtlas: rebuild the maps of a file written by either
+        package, then leave the tracker to relocalize in the newest map."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        saved_ck = state.get("vocab_checksum")
+        if saved_ck is not None:
+            ck = vocabulary_checksum(self.vocabulary)
+            if saved_ck and ck and saved_ck != ck:
+                raise ValueError(
+                    f"atlas at {path} was saved with a different vocabulary "
+                    f"(checksum {saved_ck[:12]}… != {ck[:12]}…); refusing to "
+                    "load (System.cc:1466-1479 vocabulary MD5 guard)"
+                )
+        self.atlas._maps.clear()
+        (self.atlas._next_map_id, self.atlas._next_kf_id,
+         self.atlas._next_mp_id) = state["next_ids"]
+        for md in state["maps"]:
+            m = Map(md["map_id"])     # a fresh PointStore with a fresh version
+            m.kf_db = self.atlas.kf_db
+            m.init_kf_id = md["init_kf_id"]
+            m.imu_initialized = md.get("imu_initialized", False)
+            m.is_inertial = md.get("is_inertial", False)
+            for kid, kd in md["keyframes"].items():
+                kf = KeyFrame(
+                    kid, kd["frame_id"], kd["timestamp"], kd["R_cw"], kd["t_cw"],
+                    kd["kp_uv"], kd["kp_level"], kd["kp_angle"],
+                    kd["desc_packed"], kd["desc_signed"], kd["u_right"],
+                    kd["depth"], kd["valid"],
+                )
+                kf.mp_ids = kd["mp_ids"]
+                kf.covisible = kd["covisible"]
+                kf.parent_id = kd["parent_id"]
+                kf.children = kd["children"]
+                kf.velocity = kd.get("velocity")
+                kf.imu_bias = kd.get("imu_bias")
+                kf.prev_kf_id = kd.get("prev_kf_id")
+                kf.next_kf_id = kd.get("next_kf_id")
+                kf.preintegrated = _pre_from_dict(kd.get("preintegrated"))
+                kf.bow_vec = kd.get("bow_vec")
+                kf.loop_edges = kd.get("loop_edges", set())
+                kf.merge_edges = kd.get("merge_edges", set())
+                m.add_keyframe(kf)
+                if self.loop_closer is not None and kf.bow_vec is not None:
+                    self.loop_closer.db.add(kf.kid, kf.bow_vec)
+            for mid, pd in md["mappoints"].items():
+                mp = MapPoint(mid, pd["position"], pd["ref_kf_id"], pd["first_kf_id"])
+                mp.normal = pd["normal"]
+                mp.desc_packed = pd["desc_packed"]
+                mp.desc_signed = pd["desc_signed"]
+                mp.observations = pd["observations"]
+                mp.min_distance = pd["min_distance"]
+                mp.max_distance = pd["max_distance"]
+                m.add_mappoint(mp)
+            self.atlas._maps.append(m)
+        if self.atlas._maps:
+            self.atlas.current = self.atlas._maps[-1]
+            if self.atlas.current.keyframes:
+                self._resume_tracker()
+
+    def _resume_tracker(self):
+        """The tracker after a load: RECENTLY_LOST against the newest
+        keyframe, so the next frame relocalizes; with an IMU and an
+        initialized map, the IMU anchor of that keyframe restored, so a
+        loaded inertial map keeps its initialization; the IMU waits for the
+        tracker's first keyframe after the load (ROADMAP F45)."""
+        t = self.tracker
+        t.ref_kf_id = max(self.atlas.current.keyframes)
+        t.state = TrackingState.RECENTLY_LOST
+        last = self.atlas.current.keyframes[t.ref_kf_id]
+        if (
+            self.imu_calib is not None
+            and self.atlas.current.imu_initialized
+            and last.velocity is not None
+        ):
+            if last.imu_bias is not None:
+                t.bias = (np.asarray(last.imu_bias[0]), np.asarray(last.imu_bias[1]))
+            R_wb, p_w = t._body_from_cam(last.R_cw, last.t_cw)
+            t.last_kf_state = (R_wb, p_w, np.asarray(last.velocity))
+            t.v_w = np.asarray(last.velocity)
+            t.last_kf_id = last.kid
+            # No preintegration spans from that keyframe's time to the next
+            # frame: the tracker re-acquires and tracks visually, and the
+            # second frame it tracks becomes a keyframe that anchors the IMU
+            # again (ROADMAP F45; the JAX tracker predicts from the keyframe
+            # through the samples after the load alone, and does not
+            # re-acquire)
+            t.imu_anchor_stale = True
 
     # ------------------------------------------------------------ trajectory
     def _trajectory(self):

@@ -236,6 +236,11 @@ class Tracker:
         self._prior_H = None   # ConstraintPoseImu info of the last frame
         self.last_kf_state = None             # host (R_wb, p_w, v_w) of the last KF
         self.last_kf_id = None
+        # Set by an atlas load (System._resume_tracker): the last keyframe's
+        # IMU state is restored, but no preintegration spans from its time,
+        # so the tracker tracks visually until the second frame it tracks,
+        # which becomes a keyframe to anchor the IMU on (ROADMAP F45)
+        self.imu_anchor_stale = False
         if self.use_imu:
             self._R_bc, self._t_bc = imu_calib.extrinsic_np()       # host, float64
             self._Rbc_dev = imu_calib.R_bc.to(self.device)
@@ -549,6 +554,7 @@ class Tracker:
             and self.atlas.current.imu_initialized
             and self.last_kf_state is not None
             and self.pre_from_kf is not None
+            and not self.imu_anchor_stale
         )
 
     # -------------------------------------------------- fused one-sync path
@@ -1018,8 +1024,11 @@ class Tracker:
         )
         kf.imu_bias = (self.bias[0].copy(), self.bias[1].copy())
         kf.prev_kf_id = prev_id
-        if prev_id is not None and self.pre_from_kf is not None:
+        # after an atlas load the accumulation does not span from the
+        # previous keyframe: no inertial edge to it (ROADMAP F45)
+        if prev_id is not None and self.pre_from_kf is not None and not self.imu_anchor_stale:
             kf.preintegrated = self.pre_from_kf.copy()
+        self.imu_anchor_stale = False
         if prev_id is not None:
             prev = self.atlas.current.keyframes.get(prev_id)
             if prev is not None:
@@ -1080,6 +1089,16 @@ class Tracker:
         if ok:
             self.state = TrackingState.OK
             self.lost_since = None
+            re_anchor = (self.imu_anchor_stale and self.last_frame is not None
+                         and self.last_frame.R_cw is not None
+                         and frame.timestamp > self.last_frame.timestamp)
+            if re_anchor:
+                # the second tracked frame after an atlas load: the body
+                # velocity from the two poses, and a keyframe of this run
+                # to anchor the IMU on (ROADMAP F45)
+                _, p0 = self._body_from_cam(self.last_frame.R_cw, self.last_frame.t_cw)
+                _, p1 = self._body_from_cam(frame.R_cw, frame.t_cw)
+                self.v_w = (p1 - p0) / (frame.timestamp - self.last_frame.timestamp)
             # velocity = Tcw_cur * Twc_last
             if self.last_frame is not None and self.last_frame.R_cw is not None:
                 R_wl, t_wl = self.last_frame.pose_wc()
@@ -1090,7 +1109,7 @@ class Tracker:
             self._update_found_counters(frame)
             # Localization-only mode (System::ActivateLocalizationMode):
             # track against the frozen map, never insert keyframes.
-            if not self.localization_only and self._need_new_keyframe(frame):
+            if not self.localization_only and (re_anchor or self._need_new_keyframe(frame)):
                 self._create_new_keyframe(frame)
         else:
             if self.state == TrackingState.OK:
@@ -1107,8 +1126,11 @@ class Tracker:
             self._prior_H = None
             self._tlm_cand_ids = None
             # keep last pose as estimate (unless IMU dead-reckoning
-            # already produced a prediction for this frame)
-            if frame.R_cw is None and self.last_frame.R_cw is not None:
+            # already produced a prediction for this frame). Right after an
+            # atlas load there is no last frame: the frame keeps no pose,
+            # where the JAX tracker raises AttributeError (ROADMAP F44).
+            if (frame.R_cw is None and self.last_frame is not None
+                    and self.last_frame.R_cw is not None):
                 frame.R_cw = self.last_frame.R_cw.copy()
                 frame.t_cw = self.last_frame.t_cw.copy()
         self.stats.record_count("track_ok", int(ok))

@@ -93,6 +93,16 @@ the states, the IMU init frame, keyframes, map points, and the SE(3) ATE
 over all frames:
 
     JAX_PLATFORMS=cpu python -c 'from rig_reading import rgbd_reading as r; r("jax")'
+
+`kitti_reading("jax" | "torch")` renders phase 27c's KITTI layout
+(chip_smoke.write_kitti_layout: 20 frames at 1241x376, 10 fps, baseline
+0.537 m, KITTI00-02.yaml's 2000 features, 8 levels, FAST 20/7, ThDepth 35)
+into a temporary directory and runs the package's KITTI example on it
+(examples/kitti_stereo.py, or examples/torch_kitti_stereo.py --device cpu)
+with its shipped vocabulary, on the CPU; it prints the example's lines and
+one JSON object (the SE(3) ATE of ate.json, the frames, the seconds):
+
+    JAX_PLATFORMS=cpu python -c 'from rig_reading import kitti_reading as r; r("jax")'
 """
 
 import argparse
@@ -821,6 +831,41 @@ def rgbd_reading(package, inertial=False, scene="chip"):
            "seconds": time.perf_counter() - t0}
     print(json.dumps(out), flush=True)
     return out
+
+
+def kitti_reading(package):
+    """One package's KITTI example over phase 27c's layout on the CPU;
+    prints and returns one JSON object."""
+    import os
+    import runpy
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="kitti_reading_")
+    try:
+        chip_smoke.write_kitti_layout(root)
+        out = os.path.join(root, "out")
+        script = "kitti_stereo.py" if package == "jax" else "torch_kitti_stereo.py"
+        argv = [os.path.join(root, "KITTI.yaml"), root, "--out", out,
+                "--gt", os.path.join(root, "gt.txt")] + (["--device", "cpu"] if package == "torch" else [])
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", script)
+        old = sys.argv
+        sys.argv = [path] + argv
+        t0 = time.perf_counter()
+        try:
+            runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = old
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "ate.json")) as f:
+            ate = json.load(f)
+        n_lines = len(np.loadtxt(os.path.join(out, "f_traj_kitti.txt")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"package": package, "frames": chip_smoke.N_KITTI_FRAMES, "trajectory_lines": n_lines,
+              "ate_m": ate["ate_rmse"], "n_associated": ate["n_associated"], "seconds": seconds}
+    print(json.dumps(result), flush=True)
+    return result
 
 
 def main():

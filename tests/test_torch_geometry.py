@@ -185,3 +185,70 @@ def test_make_pinhole_and_unproject(rng):
         tcam.unproject(ct, torch.from_numpy(uv)).numpy(),
         np.asarray(jcam.unproject(cj, jnp.asarray(uv))), **TOL,
     )
+
+
+# ------------------------------------------- the public API's rest (M9f)
+def test_quaternions_equal_jax(rng):
+    """quat_to_matrix and matrix_to_quat ([w, x, y, z], w >= 0) on seeded
+    rotations, those near pi about each axis included (each of the four
+    Shepperd branches), within TOL."""
+    phi = np.concatenate([rotvecs(rng), rotvecs(rng, near_pi=True),
+                          np.float32([[3.1, 0, 0], [0, 3.1, 0], [0, 0, 3.1]])])
+    R = np.asarray(jgeo.so3_exp(phi))
+    got = tgeo.matrix_to_quat(torch.from_numpy(R.copy())).numpy()
+    want = np.asarray(jgeo.matrix_to_quat(jnp.asarray(R)))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert (got[:, 0] >= 0).all()
+    q = rng.normal(size=(64, 4)).astype(np.float32)        # not unit: both normalize
+    np.testing.assert_allclose(tgeo.quat_to_matrix(torch.from_numpy(q)).numpy(),
+                               np.asarray(jgeo.quat_to_matrix(jnp.asarray(q))), **TOL)
+    np.testing.assert_allclose(tgeo.quat_to_matrix(torch.from_numpy(got)).numpy(), R, **TOL)
+
+
+def test_normalize_rotation_equals_jax(rng):
+    """Near-rotations (1e-3 noise) and reflections with distinct singular
+    values (-R diag(1, 0.9, 0.8), whose nearest rotation is unique) projected
+    onto SO(3), within TOL; the result is a rotation."""
+    import fasttrack_tpu.geometry.so3 as jso3
+
+    R = np.asarray(jgeo.so3_exp(rotvecs(rng)))
+    M = (R + rng.normal(0, 1e-3, R.shape)).astype(np.float32)
+    M[:8] = -(R[:8] @ np.diag([1.0, 0.9, 0.8]).astype(np.float32))
+    got = tgeo.normalize_rotation(torch.from_numpy(M.copy())).numpy()
+    np.testing.assert_allclose(got, np.asarray(jso3.normalize_rotation(jnp.asarray(M))), **TOL)
+    np.testing.assert_allclose(np.linalg.det(got.astype(np.float64)), 1.0, atol=1e-5)
+
+
+def test_se3_adjoint_boxplus_and_from_matrix_equal_jax(rng):
+    import fasttrack_tpu.geometry.se3 as jse3
+
+    Tt = tgeo.se3_exp(torch.from_numpy(tangents(rng)))
+    Tj = jax_se3(Tt)
+    np.testing.assert_allclose(tgeo.se3_adjoint(Tt).numpy(),
+                               np.asarray(jse3.se3_adjoint(Tj)), **TOL)
+    xi = tangents(rng) * 0.1
+    assert_se3_close(tgeo.se3_boxplus(Tt, torch.from_numpy(xi)),
+                     jse3.se3_boxplus(Tj, jnp.asarray(xi)))
+    M = tgeo.se3_matrix(Tt)
+    back = tgeo.se3_from_matrix(M)
+    np.testing.assert_array_equal(back.R.numpy(), Tt.R.numpy())
+    np.testing.assert_array_equal(back.t.numpy(), Tt.t.numpy())
+    assert_se3_close(back, jgeo.se3_from_matrix(jnp.asarray(M.numpy())))
+
+
+def test_so3_jacobians_are_exported_and_equal_jax(rng):
+    phi = rotvecs(rng)
+    for name in ("so3_left_jacobian", "so3_right_jacobian"):
+        np.testing.assert_allclose(getattr(tgeo, name)(torch.from_numpy(phi)).numpy(),
+                                   np.asarray(getattr(jgeo, name)(jnp.asarray(phi))), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["pinhole", "kb8"])
+def test_project_point_equals_jax(rng, kind):
+    cj = CAMERAS[kind]
+    ct = convert.camera_from_numpy(cj.kind, np.asarray(cj.params), cj.width, cj.height, device="cpu")
+    X = points(rng)
+    np.testing.assert_allclose(
+        tcam.project_point(ct, torch.from_numpy(X)).numpy(),
+        np.asarray(jcam.project_point(cj, jnp.asarray(X))), **TOL,
+    )

@@ -28,6 +28,11 @@ frames, two local inertial BAs. Tolerances and why:
   equal, every frame stepwise, the last frame's descriptors bit-equal
   (host extraction on both sides), poses within 2e-3 up to the first local
   adjustment, ATE against the ground truth as above;
+- each package's map after the 70 frames, saved and loaded into a new
+  System(IMU_STEREO) of both packages (M9e): every field equal, exact, and
+  the resumed trackers' IMU anchors equal; the port's inertial window and
+  keyframe cull over the loaded keyframes (the JAX package's namespace
+  snapshots) equal to the same over the live HostPreintegrated ones;
 - the blank-wall run of tests/test_inertial.py (frames 45-50 textureless)
   through the port alone: the IMU dead-reckons through it, tracking
   recovers to OK, ATE < 0.12 m.
@@ -54,6 +59,7 @@ from fasttrack_tpu_torch.imu import preintegration as tpre
 from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.system import Sensor, System
 from fasttrack_tpu_torch.tracking import TrackingState
+from tests.test_torch_atlas import assert_atlases_equal
 
 H, W = 240, 320
 N_FRAMES = 70
@@ -62,6 +68,8 @@ FIRST_ADJUSTED_FRAME = 16     # the first frame tracked against an adjusted map
 ATE_LIMIT = 0.06              # tests/test_inertial.py
 ATE_MARGIN_M = 0.005
 FULL_BA_ATOL = 1e-3           # the converged full inertial BA, beyond the maps' parting
+MID_RUN_FRAME = 50            # `ran` saves the port's atlas after this many frames
+MID_RUN_ATLAS = {}            # (its newest keyframe is frame 40's, 0.5 s before frame 50)
 
 
 def numpy_hamming_matrix_packed(a, b):
@@ -121,7 +129,7 @@ def seq():
 
 
 @pytest.fixture(scope="module")
-def ran(seq):
+def ran(seq, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setattr(jnative, "hamming_matrix_packed", numpy_hamming_matrix_packed)
     js, ts = settings_pair(seq)
@@ -130,7 +138,7 @@ def ran(seq):
     log_j, log_t = [], []
     t_prev = -1.0
     with one_torch_thread():
-        for f in seq.frames:
+        for i, f in enumerate(seq.frames):
             imu = imu_between(seq, t_prev, f.timestamp)
             jsys.track_stereo(f.left, f.right, f.timestamp, imu=imu)
             log_j.append(frame_row(jsys))
@@ -138,6 +146,9 @@ def ran(seq):
             log_t.append(dict(frame_row(tsys),
                               adjusted=int(sum(tsys.stats.series["lm_local_bas"]))))
             t_prev = f.timestamp
+            if i == MID_RUN_FRAME - 1:
+                MID_RUN_ATLAS["torch"] = str(tmp_path_factory.mktemp("mid_run") / "torch.osa")
+                tsys.save_atlas(MID_RUN_ATLAS["torch"])
     jsys.shutdown()
     tsys.shutdown()
     mp.undo()
@@ -192,6 +203,157 @@ def test_keyframes_carry_the_inertial_chain(ran):
     assert chain[-1] is kfs[-1] and [k.timestamp for k in chain] == sorted(k.timestamp for k in chain)
     # gravity was aligned to -z at init: the world's z is up
     assert tsys.tracker.last_kf_state is not None
+
+
+# ---------------------------------------------------------------- atlas (M9e)
+@pytest.fixture(scope="module")
+def atlas_files(ran, tmp_path_factory):
+    jsys, tsys, _, _ = ran
+    root = tmp_path_factory.mktemp("inertial_atlas")
+    paths = {"jax": str(root / "jax.osa"), "torch": str(root / "torch.osa")}
+    jsys.save_atlas(paths["jax"])
+    tsys.save_atlas(paths["torch"])
+    return paths
+
+
+def loaded_pair(seq, path, T_b_c1=None):
+    js, ts = settings_pair(seq, T_b_c1)
+    j = JaxSystem(js, JaxSensor.IMU_STEREO, vocabulary=False)
+    t = System(ts, Sensor.IMU_STEREO, vocabulary=False, device="cpu")
+    j.load_atlas(path)
+    t.load_atlas(path)
+    return j, t
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_the_inertial_atlas_crosses_and_resumes_as_jax(ran, seq, atlas_files, writer):
+    """Each package's IMU-initialized map after the 70 frames, loaded into a
+    new System(IMU_STEREO) of both packages: every field the file holds
+    equal to the live map's (the preintegration snapshots, velocities and
+    biases of the inertial chain included), exact; both trackers resume
+    RECENTLY_LOST on the newest keyframe with its bias, velocity and body
+    state, equal in both packages, exact."""
+    jsys, tsys, _, _ = ran
+    source = jsys if writer == "jax" else tsys
+    j, t = loaded_pair(seq, atlas_files[writer])
+    for reader in (j, t):
+        assert_atlases_equal(reader.atlas, source.atlas)
+        m = reader.atlas.current
+        assert m.imu_initialized and not m.is_inertial      # no live run marks it (F16)
+    last = t.atlas.current.keyframes[max(t.atlas.current.keyframes)]
+    assert t.tracker.state == TrackingState.RECENTLY_LOST and t.tracker.last_kf_id == last.kid
+    assert j.tracker.last_kf_id == last.kid
+    for x, y in zip(t.tracker.bias, j.tracker.bias):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(t.tracker.bias[0], last.imu_bias[0])
+    np.testing.assert_array_equal(t.tracker.v_w, j.tracker.v_w)
+    for x, y in zip(t.tracker.last_kf_state, j.tracker.last_kf_state):
+        np.testing.assert_array_equal(x, y)
+
+
+def host_snapshot(p):
+    """A HostPreintegrated with p's fields (p may be a merged namespace),
+    its averages nonzero where p has none."""
+    if p is None:
+        return None
+    h = tpre.HostPreintegrated(p.b0.bg, p.b0.ba)
+    h.dT = p.dT
+    for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "C"):
+        setattr(h, f, np.array(getattr(p, f), np.float64))
+    h.avgA = np.array(getattr(p, "avgA", [0.0, 0.0, 9.81]), np.float64)
+    h.avgW = np.array(getattr(p, "avgW", [0.01, 0.0, 0.0]), np.float64)
+    return h
+
+
+def test_an_inertial_window_and_the_cull_run_over_loaded_keyframes(ran, seq, atlas_files):
+    """A loaded keyframe's preintegration is the JAX package's namespace
+    without avgA / avgW. The port's local inertial window and keyframe cull
+    (with _merge_preintegrated) over the loaded map give what they give
+    over the same map whose keyframes hold HostPreintegrated snapshots of
+    the same numbers, with averages: poses, velocities, biases and merged preintegrations equal,
+    exact."""
+    _, tsys, _, _ = ran
+    live = tsys.atlas.current.keyframes
+    out = []
+    for swap in (False, True):
+        _, t = loaded_pair(seq, atlas_files["torch"])
+        m = t.atlas.current
+        if swap:
+            for k, kf in m.keyframes.items():
+                kf.preintegrated = host_snapshot(live[k].preintegrated)
+        else:
+            assert all(not hasattr(kf.preintegrated, "avgA")
+                       for kf in m.keyframes.values() if kf.preintegrated is not None)
+        latest = m.keyframes[max(m.keyframes)]
+        with one_torch_thread():
+            t.local_mapper._local_inertial_ba(latest)
+            before = set(m.keyframes)
+            t.local_mapper._cull_keyframes(latest)
+        out.append(dict(
+            culled=before - set(m.keyframes),
+            poses={k: (kf.R_cw, kf.t_cw, kf.velocity, kf.imu_bias) for k, kf in m.keyframes.items()},
+            pre={k: (kf.preintegrated.dT, kf.preintegrated.dP, kf.preintegrated.C)
+                 for k, kf in m.keyframes.items() if kf.preintegrated is not None}))
+    assert out[0]["culled"] == out[1]["culled"]
+    assert sorted(out[0]["poses"]) == sorted(out[1]["poses"])
+    for k in out[0]["poses"]:
+        for x, y in zip(out[0]["poses"][k][:3], out[1]["poses"][k][:3]):
+            np.testing.assert_array_equal(x, y, err_msg=f"keyframe {k}")
+        for x, y in zip(out[0]["poses"][k][3], out[1]["poses"][k][3]):
+            np.testing.assert_array_equal(x, y, err_msg=f"keyframe {k}")
+    for k in out[0]["pre"]:
+        for x, y in zip(out[0]["pre"][k], out[1]["pre"][k]):
+            np.testing.assert_array_equal(x, y, err_msg=f"keyframe {k}")
+    # the window moved the loaded map
+    assert any(np.abs(out[0]["poses"][k][1] - live[k].t_cw).max() > 0 for k in out[0]["poses"])
+    # the cull's composition of two loaded snapshots, whether or not a
+    # keyframe went above: as of the same numbers in HostPreintegrated
+    _, t = loaded_pair(seq, atlas_files["torch"])
+    pairs = [(a.preintegrated, b.preintegrated) for a, b in zip(
+        *(sorted(t.atlas.current.keyframes.values(), key=lambda k: k.kid)[i:] for i in (0, 1)))
+        if a.preintegrated is not None and b.preintegrated is not None]
+    assert pairs
+    for a, b in pairs:
+        got = tmapping._merge_preintegrated(a, b)
+        want = tmapping._merge_preintegrated(host_snapshot(a), host_snapshot(b))
+        for f in ("dT", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "C"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+def test_f45_the_resumed_inertial_tracker_re_acquires_visually(ran, seq):
+    """ROADMAP F45: the port's atlas after 50 frames (its newest keyframe
+    0.5 s back), loaded and fed frames 50-59 with their IMU samples. The
+    JAX System predicts from that keyframe through the samples after the
+    load alone (a 0.05 s preintegration for a 0.5 s gap) and does not
+    re-acquire; the port re-acquires visually on the first frame, makes the
+    second a keyframe (its velocity from the two poses, no inertial edge to
+    the old chain) and tracks inertially from the third on."""
+    path = MID_RUN_ATLAS["torch"]
+    j, t = loaded_pair(seq, path)
+    last = t.atlas.current.keyframes[max(t.atlas.current.keyframes)]
+    assert t.tracker.imu_anchor_stale and seq.frames[MID_RUN_FRAME].timestamp - last.timestamp >= 0.5
+    states = {"jax": [], "torch": []}
+    first_kf, inertial_after = None, 0
+    t_prev = seq.frames[MID_RUN_FRAME - 1].timestamp
+    with one_torch_thread():
+        for i, f in enumerate(seq.frames[MID_RUN_FRAME:MID_RUN_FRAME + 10]):
+            imu = imu_between(seq, t_prev, f.timestamp)
+            t_prev = f.timestamp
+            t.track_stereo(f.left, f.right, f.timestamp, imu=imu)
+            states["torch"].append(t.tracking_state.name)
+            if first_kf is None and t.tracker.last_kf_id != last.kid:
+                first_kf = t.atlas.current.keyframes[t.tracker.last_kf_id]
+            elif first_kf is not None and t.tracker._imu_ready():
+                inertial_after += 1
+            if i < 6:
+                j.track_stereo(f.left, f.right, f.timestamp, imu=imu)
+                states["jax"].append(j.tracking_state.name)
+    assert states["jax"] == ["RECENTLY_LOST"] * 6
+    assert states["torch"] == ["OK"] * 10
+    assert first_kf is not None and first_kf.frame_id == 1 and first_kf.preintegrated is None
+    assert first_kf.prev_kf_id == last.kid and not t.tracker.imu_anchor_stale
+    assert inertial_after == 8
+    assert ate_rmse(seq, t) < ATE_LIMIT
 
 
 # ------------------------------------------------------------------ dead reckoning
@@ -282,7 +444,7 @@ def test_mask_0000_poses_equal_until_the_first_adjustment(ran_host, seq):
 
 
 # ------------------------------------------------------------------ wiring, resets
-def test_system_builds_the_calibration_from_the_settings(seq):
+def test_system_builds_the_calibration_from_the_settings(seq, tmp_path):
     R = np.asarray([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
     T_bc = np.eye(4)
     T_bc[:3, :3], T_bc[:3, 3] = R, [0.01, 0.02, 0.03]
@@ -309,9 +471,12 @@ def test_system_builds_the_calibration_from_the_settings(seq):
     np.testing.assert_array_equal(rgbd.imu_calib.R_bc.numpy(), R.astype(np.float32))
     assert (rgbd.imu_calib.noise_gyro, rgbd.imu_calib.freq) == (2e-4, 400.0)
     assert rgbd.tracker.use_imu and not rgbd.tracker.monocular
-    for call in (system.save_atlas, system.load_atlas):
-        with pytest.raises(NotImplementedError, match="M9"):
-            call("a.osa")
+    # atlas save and load (M9e) work on the inertial sensors: an empty
+    # atlas round-trips, and no IMU anchor is restored from it
+    path = str(tmp_path / "a.osa")
+    system.save_atlas(path)
+    mono.load_atlas(path)
+    assert mono.atlas.current.n_keyframes() == 0 and mono.tracker.last_kf_state is None
     # a stereo map has no scale to refine: its mapper never reaches the
     # refinement, which only a monocular-inertial map's takes
     assert not system.local_mapper.monocular and mono.local_mapper._scale_kf_counter == 0
