@@ -16,7 +16,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    fused hamming_penalty_topk (values and indices equal) against their
    plain PyTorch versions at the tracker's shapes, the local mapper's
    (10240 x 1024 stacked triangulation rows, a 3000 x 1024 fusion matrix),
-   ragged ones, N < K, an input built to tie, K = 2 as match_fisheye
+   ragged ones, N < K, inputs built to tie (also across the top-K
+   kernel's key tiles at 4,096 keys), zero rows (a tenth of the queries and
+   all but 40 keys, under 1e9 penalties), K = 2 as match_fisheye
    calls it (validity penalties of 1e9, so that whole rows tie), and K = 1
    as the flat vocabulary's quantization calls it (1024 x 4096, zero
    penalties; with rows tied at 1e9; a tied 700 x 64) beside matrix kernel
@@ -59,7 +61,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
 11. system, card against CPU: the first frames (three keyframes, one
    adjustment) again through System(device="cpu"): states, paths, keyframe
    frames, map-point counts and poses; the CPU run goes in the renderer's
-   process while phases 12-16 run on the card, and is checked after them;
+   process while phases 12-15 run on the card, and is checked after them;
 12. system, mapping on its own thread (async_mapping=True): every frame OK,
    the mapper drained and idle after shutdown, the ATE;
 13. stereo-inertial system in its default configuration:
@@ -98,7 +100,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
    launches its device matcher; under 0000 the only launch is the
    reference-keyframe matcher's, which runs on the device under every mask
    as in the JAX package); BASELINE.md's published row beside each;
-16. the stereo-inertial system under mask 0000 (BASELINE.md's CPU row):
+16. the stereo-inertial system under mask 0000 (BASELINE.md's CPU row),
+   in a process of its own beside phases 17-18 (its frames are host NumPy;
+   as phases 24-25 beside 22-23, so the lines of 16-18 and 22-25 say that
+   their times were taken beside another process on the same card and host):
    the first N_HOST_INERTIAL_FRAMES frames of phase 13's sequence with
    their IMU samples, inline mapping: every frame OK, IMU init, |bg|, the
    ATE (<= 0.02 m over the frames after init; over all of them the bound
@@ -372,13 +377,16 @@ MATRIX_SHAPES = [(1024, 1024), (2048, 1024), (4096, 1024), (1200, 1000), FUSION_
 EPI_ROWS = 10 * 1024            # the mapper's 10 neighbour keyframes, stacked
 # (M, N, kind of input, K); 33 x 40 has N < K. "validity": what match_fisheye
 # gives the kernel (penalties 0 or 1e9, invalid rows tie across all columns).
+# The last three hold the kernel's tiling: ties across its key tiles and the
+# K <= 2 path at the widest N, and zero rows ("zeros").
 TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 1024, "random", 64),
               (1200, 1000, "random", 64), (33, 40, "random", 64), (1024, 1024, "tied", 64),
               (1024, 1024, "validity", 2), (1000, 900, "validity", 2), (1024, 1024, "tied", 2),
               (EPI_ROWS, 1024, "validity", 64), (1024, 4096, "words", 1),
               (1024, 4096, "validity", 1), (700, 64, "tied", 1),
               (2000, 2000, "random", 64), (2000, 2000, "validity", 2), (4096, 2000, "random", 64),
-              (20480, 2048, "validity", 64)]
+              (20480, 2048, "validity", 64), (1024, 4096, "tied", 64), (1024, 4096, "validity", 2),
+              (1024, 1024, "zeros", 64)]
 # K = 1: the flat vocabulary's quantization (bow/vocabulary.py:_assign), the
 # shipped flat vocabulary's 4096 words at the kernel's MAX_N, zero penalties
 CHUNKED_SHAPE = (1024, 5000)    # K = 1 past MAX_N: a wider flat vocabulary in two launches
@@ -581,6 +589,22 @@ def device_kernels(prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+# Set while a phase runs beside phases of another process on the same card
+# and host (phase 16 beside 17-18, 24-25 beside 22-23): the phase's line
+# says so, since its times are taken under that contention.
+BESIDE = ""
+
+
+def beside(note, fn, *args):
+    """fn(*args), its phases' lines marked with `note`."""
+    global BESIDE
+    BESIDE = f" [{note}]"
+    try:
+        return fn(*args)
+    finally:
+        BESIDE = ""
+
+
 TIMER = {"mode": "profiler"}    # "events" once the tracer has failed; never back
 
 
@@ -679,8 +703,27 @@ def kernel_inputs(rng, M, N, device, kind="random"):
     penalties, as the vocabulary's quantization gives them; "tied": rows
     drawn from 4 descriptors, so that most distances are equal; "validity":
     penalties as match_fisheye makes them from validity masks (a fifth of
-    the rows and columns at 1e9: such a row ties across all its columns)."""
-    if kind == "words":
+    the rows and columns at 1e9: such a row ties across all its columns);
+    "zeros": zero rows under 1e9 penalties on both sides, as the point
+    store's empty rows and the tracker's padded gathers give them (a tenth
+    of the queries; all keys but 40, fewer than K, so that a row's
+    penalised slots reach the output), and +1 queries with 40 to 60
+    entries at -1, whose distance to a zero key is 128, not their count of
+    -1 entries (a kernel that read only signs would see 1e9 + 64 there,
+    not 1e9 + 128)."""
+    if kind == "zeros":
+        q = np.ones((M, 256), np.int8)
+        for row, n_neg in enumerate(rng.integers(40, 61, M)):
+            q[row, rng.choice(256, n_neg, replace=False)] = -1
+        zero_q = rng.random(M) < 0.1
+        q[zero_q] = 0
+        k = np.zeros((N, 256), np.int8)
+        valid_k = rng.choice(N, min(40, N), replace=False)
+        k[valid_k] = 2 * rng.integers(0, 2, (len(valid_k), 256)) - 1
+        qp = np.where(zero_q, 1e9, 0.0).astype(np.float32)
+        kp = np.full(N, 1e9, np.float32)
+        kp[valid_k] = 0.0
+    elif kind == "words":
         q = (2 * rng.integers(0, 2, (M, 256)) - 1).astype(np.int8)
         k = (2 * rng.integers(0, 2, (N, 256)) - 1).astype(np.int8)
         qp, kp = np.zeros(M, np.float32), np.zeros(N, np.float32)
@@ -776,6 +819,11 @@ def phase_topk_kernel(device, card):
             tie_rows = int((args[2] > 0).sum())
             check(tie_rows > 0, f"no penalised row among the inputs at {(M, N, K)}")
             line += f" ({tie_rows} rows penalised by 1e9 tie across their columns)"
+        if kind == "zeros":
+            zero_slots = int((want_v == 1e9 + 128).sum())
+            check(zero_slots > 0, f"no zero key's slot among the outputs at {(M, N, K)}")
+            line += (f" ({int((args[0] == 0).all(1).sum())} zero query rows; {zero_slots} output "
+                     f"slots at 1e9 + 128, a query against a zero key)")
         if M >= 1024 and kind != "tied" and (M, N, K) not in rows:
             while True:
                 k_ms, p_ms, timer = in_turns(lambda: plain(*args, K), lambda: kern(*args, K))
@@ -2013,7 +2061,7 @@ def phase_system_inertial_host(device, seq, card):
     }
     series = system.stats.series
     print(
-        f"phase 16 stereo-inertial system, mask 0000 PO on, inline mapping: {len(log)} frames at "
+        f"phase 16{BESIDE} stereo-inertial system, mask 0000 PO on, inline mapping: {len(log)} frames at "
         f"{W}x{H} through System.track_stereo(..., imu=...) on {card}: every frame OK and "
         f"stepwise; IMU initialized at frame {init_frame}, |bg| {np.linalg.norm(bg):.5f} rad/s; "
         f"ms/frame median, p90 (count): "
@@ -2161,7 +2209,7 @@ def phase_relocalization(device, seq, card, atlas_path):
     relocated = [a for a in scenario if a["ok"]]
     reloc_launches = sum(a["launches_k2"] for a in attempts)
     print(
-        f"phase 17 relocalization: System(Sensor.STEREO) with the shipped vocabulary on {card}, "
+        f"phase 17{BESIDE} relocalization: System(Sensor.STEREO) with the shipped vocabulary on {card}, "
         f"frames 0-{N_RELOC_TRACKED - 1} of phase 10's sequence every one OK ({n_kf} keyframes), "
         f"{N_RELOC_BLANK} blank frames -> RECENTLY_LOST, frames 0-{N_RELOC_AGAIN - 1} again: "
         f"states {states}; re-acquired at frame {back} "
@@ -2249,7 +2297,7 @@ def phase_loop_closing_map(device, card):
           f"phase 18a: card against CPU, keyframe poses part by {worst:.2e} (limit 1e-3)")
     loop_row = next(r for r in rows if r["closed"])
     print(
-        f"phase 18a loop closing, drifted map: {len(rows)} keyframes (6 outbound, 3 returning with "
+        f"phase 18a{BESIDE} loop closing, drifted map: {len(rows)} keyframes (6 outbound, 3 returning with "
         f"a 0.06 rad / 0.3 m drift, {LOOP_W}x{LOOP_H}) through LoopCloser.process_keyframe on "
         f"{card}: loop closed at keyframe {lc.last_loop_kf_id}, global BAs {lc.n_gba_runs}; drift "
         f"{before:.4f} m -> {after:.4f} m (limit {DRIFT_RATIO} x); loop-closing keyframe "
@@ -2297,7 +2345,7 @@ def phase_loop_closing_system(device, card, loop_seq):
     closing = [r["ms"] for r in log if any(x["closed"] for x in r["lc"])]
     lc_ms = [r["ms"] for r in rows]
     print(
-        f"phase 18b loop closing, System(Sensor.STEREO) with the shipped vocabulary over "
+        f"phase 18b{BESIDE} loop closing, System(Sensor.STEREO) with the shipped vocabulary over "
         f"{N_LOOP_FRAMES} frames of the rendered loop at {W}x{H} (waited {render_s:.1f} s for its "
         f"rendering) on "
         f"{card}: frames not OK {not_ok}; loops closed {lc.n_loops_closed} at (frame, keyframe) "
@@ -2838,7 +2886,7 @@ def phase_rectified_inertial(device, seq, rig, card):
     for r in fused:
         check(r["fetches"] == 1, f"phase 22a: {r['fetches']} fetches on a fused frame")
     print(
-        f"phase 22a rectified EuRoC pair, stereo-inertial, default configuration: "
+        f"phase 22a{BESIDE} rectified EuRoC pair, stereo-inertial, default configuration: "
         f"{len(log)} rendered {W}x{H} frames of a radtan pair (camera 2 rotated "
         f"0.8 deg; R1 {r1_deg:.3f} deg; new fx {float(system.tracker.camera.params[0]):.3f}, "
         f"bf {system.settings.bf:.4f}) through System.track_stereo(..., imu=...) on {card}: "
@@ -2878,7 +2926,7 @@ def phase_resize(device, seq, rig, card):
     times = [r["ms"] for r in log[2:]]
     series = system.stats.series
     print(
-        f"phase 22b input resize: {N_RESIZE_FRAMES} frames of phase 22a's {W}x{H} pair through "
+        f"phase 22b{BESIDE} input resize: {N_RESIZE_FRAMES} frames of phase 22a's {W}x{H} pair through "
         f"System(Sensor.STEREO) asked for {w}x{h} on {card}: every frame OK; ATE RMSE "
         f"{ate['rmse']:.4f} m (limit {ATE_LIMIT_M}); ms/frame median {np.median(times):.3f}, p90 "
         f"{np.percentile(times, 90):.3f} over {len(times)}, of it on the host: resize "
@@ -2930,7 +2978,7 @@ def phase_fisheye_inertial(device, seq, rig, card):
     stepwise_after = sum(r["path"] == "stepwise" for r in after)
     k2_fisheye = sum(r["stages"]["fisheye"][0] for r in log)
     print(
-        f"phase 23a KB8 fisheye pair, stereo-inertial, default configuration: {len(log)} "
+        f"phase 23a{BESIDE} KB8 fisheye pair, stereo-inertial, default configuration: {len(log)} "
         f"rendered {KB8_SIZE}x{KB8_SIZE} frames through System.track_stereo(..., imu=...) on "
         f"{card}: every frame OK; frame 0: {first['stereo']} keypoints with a triangulated "
         f"depth; one K = 2 launch (match_fisheye) per frame, {k2_fisheye} in all; IMU "
@@ -3101,7 +3149,7 @@ def phase_mono_system(device, seq, card):
     ok_attempt = attempts[-1]
     series = system.stats.series
     print(
-        f"phase 24a monocular System, default configuration: {len(log)} frames of phase 10's "
+        f"phase 24a{BESIDE} monocular System, default configuration: {len(log)} frames of phase 10's "
         f"{W}x{H} sequence through System(Sensor.MONOCULAR).track_monocular on {card}: states "
         f"{''.join(s[0] for s in states)}; initialized at frame {init} (the JAX package "
         f"{MONO_JAX['init_frame']}), {n_ok - 1} OK frames after it ({n_ok} OK in all; the JAX "
@@ -3282,7 +3330,7 @@ def phase_mono_inertial_system(device, seq, card):
     rms_motion = float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean()))
     m = system.atlas.current
     print(
-        f"phase 25a monocular-inertial System, default configuration: {len(log)} frames of phase "
+        f"phase 25a{BESIDE} monocular-inertial System, default configuration: {len(log)} frames of phase "
         f"10's {W}x{H} sequence with their 200 Hz IMU stream through "
         f"System(Sensor.IMU_MONOCULAR).track_monocular(..., imu=...) on {card}: states "
         f"{state_str}; two-view init at frame {init}, IMU init at frame {imu_init} with scale "
@@ -3909,7 +3957,11 @@ def main():
     # 752x480 frames take the host 2-3 minutes of NumPy in all) render in
     # order in a process of their own while the phases before each run.
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as renderer:
+    # `side` runs phases 16 and 24-25, each beside inline phases of this
+    # process (17-18, 22-23): their frames are mostly host work, and the
+    # inline phases' results do not depend on timing
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as renderer, \
+            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as side:
         sequences = (
             renderer.submit(generate_sequence, n_frames=N_SYSTEM_FRAMES, h=H, w=W),
             renderer.submit(generate_sequence, n_frames=N_INERTIAL_FRAMES, h=H, w=W),
@@ -3929,17 +3981,31 @@ def main():
         work = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             kitti = renderer.submit(write_kitti_layout, os.path.join(work, "kitti"))
-            run_phases(device, kind, card, t_start, renderer, *sequences, kitti, work)
+            run_phases(device, kind, card, t_start, renderer, side, *sequences, kitti, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
 
-def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, loop_seq,
+def phases_mono(device, seq, card):
+    """Phases 24 (the visual monocular System, a: default configuration;
+    b: card against CPU) and 25 (the monocular-inertial System, a: default
+    configuration; b: its first inertial window and its first with a
+    flipped step, card against CPU), for a process of their own; returns
+    their launch counts."""
+    mono_launches, mono_matrix, init_inputs = phase_mono_system(device, seq, card)
+    mono_cpu_launches, mono_cpu_matrix = phase_mono_card_vs_cpu(device, seq, card, init_inputs)
+    mi_launches, mi_matrix, mi_rec = phase_mono_inertial_system(device, seq, card)
+    phase_mono_inertial_card_vs_cpu(mi_rec, card)
+    return mono_launches, mono_matrix, mono_cpu_launches, mono_cpu_matrix, mi_launches, mi_matrix
+
+
+def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial_seq, loop_seq,
                radtan_seq, kb8_seq, rgbd_scene, kitti_layout, work):
     """Phases 2-27, then the kernels line and the last lines; `renderer` is
-    the renderer's process pool, the arguments after it are the futures of
-    the rendered sequences and of the KITTI layout, and `work` the
-    temporary directory of the atlas files."""
+    the renderer's process pool, `side` the one that runs phases 16 and
+    24-25, the arguments after it are the futures of the rendered sequences
+    and of the KITTI layout, and `work` the temporary directory of the atlas
+    files."""
     atlas17, atlas21 = os.path.join(work, "phase17.osa"), os.path.join(work, "phase21b.osa")
     # 2. build: g++ for the host library beside the two nvcc processes
     t0 = time.perf_counter()
@@ -3998,22 +4064,29 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
     phase_inertial_card_vs_cpu(inertial_rec)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 13-14")
 
-    # 15. BASELINE.md's toggle matrix on the tracker, 16. the inertial system under 0000
+    # 15. BASELINE.md's toggle matrix on the tracker, 16. the inertial system
+    # under 0000 in a process of its own (its frames are host NumPy, ~2.5 s
+    # each), beside phases 17-18, whose mapping is inline: their results do
+    # not depend on timing, and phase 16's times are taken beside them
     toggle_launches, toggle_matrix, _ = phase_toggle_matrix(device, seq, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 15")
-    host_i_launches, host_i_matrix = phase_system_inertial_host(device, seq_i, card)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16")
+    host_inertial = side.submit(beside, "timed beside phases 17-18 in another process",
+                                phase_system_inertial_host, device, seq_i, card)
     phase_system_card_vs_cpu(system_log, system_cpu)
     del system_log, system_cpu
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 11's check")
 
     # 17. relocalization, 18. loop closing (a: a drifted map, b: the System over a loop)
-    reloc_all, reloc_matrix, reloc_launches, reloc_saved = phase_relocalization(
-        device, seq, card, atlas17)
+    note = "timed beside phase 16 in another process"
+    reloc_all, reloc_matrix, reloc_launches, reloc_saved = beside(
+        note, phase_relocalization, device, seq, card, atlas17)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 17")
-    map_launches, k13_launches, k13_ms = phase_loop_closing_map(device, card)
-    loop_all, loop_matrix, loop_lc = phase_loop_closing_system(device, card, loop_seq)
+    map_launches, k13_launches, k13_ms = beside(note, phase_loop_closing_map, device, card)
+    loop_all, loop_matrix, loop_lc = beside(note, phase_loop_closing_system, device, card,
+                                            loop_seq)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 18")
+    host_i_launches, host_i_matrix = host_inertial.result()
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16 (beside phases 17-18)")
 
     # 19. inertial loop closing (a: a drifted inertial map, b: the post-loop
     # global BA of phase 13's map), 20. the Atlas map merge, 21. the threads
@@ -4030,34 +4103,31 @@ def run_phases(device, kind, card, t_start, renderer, system_seq, inertial_seq, 
     async_i_launches, async_i_matrix = phase_system_inertial_async(device, seq_i, card, atlas21)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 21")
 
-    # 22. EuRoC's distorted pair (a: stereo-inertial, rectified; b: resized),
-    # 23. TUM-VI's KB8 fisheye pair (a: stereo-inertial; b: card against CPU)
+    # 24-25 (below) in `side`, beside 22. EuRoC's distorted pair (a:
+    # stereo-inertial, rectified; b: resized), 23. TUM-VI's KB8 fisheye pair
+    # (a: stereo-inertial; b: card against CPU)
+    mono = side.submit(beside, "timed beside phases 22-23 in another process", phases_mono,
+                       device, seq, card)
     t0 = time.perf_counter()
     seq_r, seq_f = radtan_seq.result(), kb8_seq.result()
     print(f"rendered {N_RIG_FRAMES} frames of a radtan pair at {W}x{H} and {N_RIG_FRAMES} of a "
           f"KB8 pair at {KB8_SIZE}x{KB8_SIZE} with their IMU streams (waited "
           f"{time.perf_counter() - t0:.1f} s for them)")
-    rect_launches, rect_matrix = phase_rectified_inertial(
-        device, seq_r, synthetic.euroc_radtan_rig(W, H), card)
-    resize_launches, resize_matrix = phase_resize(
-        device, seq_r, synthetic.euroc_radtan_rig(W, H), card)
+    note = "timed beside phases 24-25 in another process"
+    rect_launches, rect_matrix = beside(note, phase_rectified_inertial, device, seq_r,
+                                        synthetic.euroc_radtan_rig(W, H), card)
+    resize_launches, resize_matrix = beside(note, phase_resize, device, seq_r,
+                                            synthetic.euroc_radtan_rig(W, H), card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 22")
     kb8_rig = synthetic.tumvi_kb8_rig(KB8_SIZE, KB8_SIZE, fov_deg=KB8_FOV_DEG)
-    fish_launches, fish_matrix, fish_k2 = phase_fisheye_inertial(device, seq_f, kb8_rig, card)
+    fish_launches, fish_matrix, fish_k2 = beside(note, phase_fisheye_inertial, device, seq_f,
+                                                 kb8_rig, card)
     fish_cpu_launches, fish_cpu_matrix = phase_fisheye_card_vs_cpu(device, seq_f, kb8_rig, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 23")
 
-    # 24. the visual monocular System (a: default configuration; b: card against CPU)
-    mono_launches, mono_matrix, init_inputs = phase_mono_system(device, seq, card)
-    mono_cpu_launches, mono_cpu_matrix = phase_mono_card_vs_cpu(device, seq, card, init_inputs)
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 24")
-
-    # 25. the monocular-inertial System (a: default configuration; b: its first
-    # inertial window and its first with a flipped step, card against CPU)
-    mi_launches, mi_matrix, mi_rec = phase_mono_inertial_system(device, seq, card)
-    phase_mono_inertial_card_vs_cpu(mi_rec, card)
-    del mi_rec
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 25")
+    (mono_launches, mono_matrix, mono_cpu_launches, mono_cpu_matrix, mi_launches,
+     mi_matrix) = mono.result()
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 24-25 (beside phases 22-23)")
 
     # 26. the RGB-D System (a: default configuration; b: with an IMU; c: card
     # against CPU)

@@ -1,6 +1,7 @@
 """Where the PyTorch port's tracking paths spend their time, on one GPU.
 
     python3 profile_torch.py [--trace FILE.json] [--earlier-matrix-source FILE.cu ...]
+                             [--earlier-topk-source FILE.cu ...]
 
 At chip_smoke.py's configuration (752x480, 8 levels, 1024 features) it
 prints, for the hot path (a 2048-point map built from the previous frame)
@@ -38,7 +39,17 @@ and a 3000 x 1024 fusion matrix among them), of the batched 4x4 SVD that
 triangulates the 10240 candidate pairs, of an empty kernel (the floor under any
 kernel), of a plain fill of the matrix kernel's output (the same bytes,
 written only), and, with --earlier-matrix-source, of an earlier version of the
-matrix kernel's source (same C interface) in turns with the current one.
+matrix kernel's source (same C interface) in turns with the current one. The
+top-K kernel is timed at every shape the paths give it (TOPK_TABLE) beside
+its plain version, the matrix kernel + torch.topk (+ torch.argmin at K = 1),
+the number of device kernels one call launches and, for K > 2, its list
+path under each split of the key side (the launch plan's evidence) and at
+K = 2 (its products and strips with almost no merges); with
+--earlier-topk-source, an earlier hamming_topk.cu with the first version's C
+interface (a scratch buffer of 8 * (ceil(N / 32) * 32 + M) int32) is held
+equal to the current kernel on +-1 inputs and timed in turns with it
+(current, earlier, earlier, current). A run given an earlier source of
+either kernel times the kernels only, without the paths' profiles.
 Profiling slows the host, so the profiled window's idle share is an upper
 bound of the unprofiled run's. Needs CUDA; imports nothing of JAX.
 """
@@ -528,6 +539,111 @@ def earlier_matrix_kernel(source: Path):
     return call
 
 
+def earlier_topk_kernel(source: Path):
+    """A callable like hamming_penalty_topk over an earlier version of the
+    kernel's source with the first version's C interface (its scratch
+    buffer allocated here, as its wrapper did)."""
+    lib = compile_library(source)
+    lib.hamming_topk_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.hamming_topk_launch.restype = ctypes.c_int
+
+    def call(q, k, qp, kp, top):
+        M, N = q.shape[0], k.shape[0]
+        K = min(top, N)
+        values = torch.empty((M, K), dtype=torch.float32, device=q.device)
+        indices = torch.empty((M, K), dtype=torch.int64, device=q.device)
+        scratch = torch.empty(8 * (-(-N // 32) * 32 + M), dtype=torch.int32, device=q.device)
+        err = lib.hamming_topk_launch(q.data_ptr(), k.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+                                      scratch.data_ptr(), values.data_ptr(), indices.data_ptr(),
+                                      M, N, K, torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"earlier top-k kernel launch failed ({err})")
+        return values, indices
+
+    return call
+
+
+def kernels_per_call(fn, calls=5) -> float:
+    """Device kernels one call of `fn` launches, from torch.profiler. The
+    tracer can lose the first kernels of a window, so the window opens with
+    8 spin kernels that are not counted (as chip_smoke.profiler_ms does)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return len([k for k in cs.device_kernels(prof) if "spin_kernel" not in k.name]) / calls
+
+
+# The top-K kernel's shapes on the paths (M, N, K, kind of input): the
+# stereo match and TWM, the fused frame's TLM, match_fisheye (K = 2), the
+# flat vocabulary's _assign (K = 1), the mapper's triangulation, and KITTI's
+# widths (stereo, TWM and the reference-keyframe match, TLM, triangulation)
+TOPK_TABLE = [(1024, 1024, 64, "random"), (2048, 1024, 64, "random"), (4096, 1024, 64, "random"),
+              (1024, 1024, 2, "validity"), (1024, 4096, 1, "words"),
+              (cs.EPI_ROWS, 1024, 64, "validity"), (2000, 2000, 64, "random"),
+              (2000, 2000, 2, "validity"), (4096, 2000, 64, "random"),
+              (20480, 2048, 64, "validity")]
+
+
+def topk_times(dev, card, earlier_sources):
+    rng = np.random.default_rng(4)
+    us = lambda fn: round(cs.device_ms(fn) * 1e3, 3)
+    topk = hamming_kernel.hamming_penalty_topk
+    topk_plain = hamming_kernel.hamming_penalty_topk_reference
+    matrix = hamming_kernel.hamming_penalty_matrix
+    earlier = {src: earlier_topk_kernel(Path(src)) for src in earlier_sources}
+    for M, N, K, kind in TOPK_TABLE:
+        a = cs.kernel_inputs(rng, M, N, dev, kind)
+        got = topk(*a, K)
+        want = topk_plain(*a, K)
+        cs.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                 f"top-k kernel differs from plain at {(M, N, K, kind)}")
+        plan = hamming_kernel.topk_launch_plan(M, N, K)
+        row = {"bound_us": round(cs.bound_ms(M, N, M * K * 12)[0] * 1e3, 3),
+               "plan": {"path": plan.path, "rows": plan.rows, "ctas": plan.ctas, "split": plan.split,
+                        "part_tiles": plan.part_tiles, "strip_tiles": plan.strip_tiles,
+                        "shared_bytes": plan.shared_bytes},
+               "kernels_per_call": kernels_per_call(lambda: topk(*a, K)),
+               "kernel_us": [us(lambda: topk(*a, K))]}
+        for src, fn in earlier.items():   # in turns: current, earlier, earlier, current
+            old = fn(*a, K)
+            cs.check(torch.equal(old[0], got[0]) and torch.equal(old[1], got[1]),
+                     f"{src} and the current top-k kernel differ at {(M, N, K, kind)}")
+            row[f"earlier_us {src}"] = [us(lambda: fn(*a, K)), us(lambda: fn(*a, K))]
+            row[f"earlier_kernels_per_call {src}"] = kernels_per_call(lambda: fn(*a, K))
+            row["kernel_us"].append(us(lambda: topk(*a, K)))
+        if K > 2:
+            # the plan rule's evidence, the list path under each split; and
+            # at K = 2 under the picked split, where a row's threshold is its
+            # second best and few keys reach its list: the same products and
+            # strips with almost no merges
+            picked = hamming_kernel.topk_launch_plan
+            row["list_split_us"] = {}
+            try:
+                for split in (1, 2, 4):
+                    other = hamming_kernel.topk_plan(M, N, K, hamming_kernel.PATH_LIST, split)
+                    hamming_kernel.topk_launch_plan = lambda *_, plan=other: plan
+                    row["list_split_us"][split] = us(lambda: topk(*a, K))
+                other = hamming_kernel.topk_plan(M, N, 2, hamming_kernel.PATH_LIST, plan.split)
+                hamming_kernel.topk_launch_plan = lambda *_, plan=other: plan
+                row["list_path_at_k_2_us"] = us(lambda: topk(*a, 2))
+            finally:
+                hamming_kernel.topk_launch_plan = picked
+        row["plain_us"] = us(lambda: topk_plain(*a, K))
+        row["matrix_kernel_plus_torch_topk_us"] = us(
+            lambda: torch.topk(matrix(*a), K, largest=False))
+        if K == 1:
+            row["matrix_kernel_plus_torch_argmin_us"] = us(
+                lambda: torch.argmin(matrix(*a), dim=1))
+        print(f"hamming_penalty_topk device time at {(M, N)}, K {K}, {kind} ({card}): "
+              f"{json.dumps(row)}")
+
+
 def kernel_times(dev, card, earlier_sources):
     rng = np.random.default_rng(0)
     us = lambda fn: round(cs.device_ms(fn) * 1e3, 3)
@@ -548,29 +664,6 @@ def kernel_times(dev, card, earlier_sources):
         row["fill_of_the_output_us"] = us(lambda: out.fill_(1.0))  # the same bytes, written only
         print(f"hamming_penalty (matrix) device time at {(M, N)} ({card}): {json.dumps(row)}")
 
-    topk = hamming_kernel.hamming_penalty_topk
-    topk_plain = hamming_kernel.hamming_penalty_topk_reference
-    for M, N in ((1024, 1024), (2048, 1024), (4096, 1024), (cs.EPI_ROWS, 1024)):
-        a = cs.kernel_inputs(rng, M, N, dev, "validity" if M == cs.EPI_ROWS else "random")
-        row = {
-            "bound_us": round(cs.bound_ms(M, N, M * cs.TOP_K * 12)[0] * 1e3, 3),
-            "kernel_us": [us(lambda: topk(*a, cs.TOP_K)), us(lambda: topk(*a, cs.TOP_K))],
-            "plain_us": us(lambda: topk_plain(*a, cs.TOP_K)),
-            "matrix_kernel_plus_stable_sort_us": us(lambda: cs.top_k(-matrix(*a), cs.TOP_K)),
-            "matrix_kernel_plus_torch_topk_us": us(
-                lambda: torch.topk(matrix(*a), cs.TOP_K, largest=False)),
-        }
-        dm = matrix(*a)
-        row["torch_topk_alone_us"] = us(lambda: torch.topk(dm, cs.TOP_K, largest=False))
-        print(f"hamming_penalty_topk device time at {(M, N)} ({card}): {json.dumps(row)}")
-    a = cs.kernel_inputs(rng, 1024, 1024, dev, "validity")   # match_fisheye's call
-    row = {
-        "bound_us": round(cs.bound_ms(1024, 1024, 1024 * 2 * 12)[0] * 1e3, 3),
-        "kernel_us": [us(lambda: topk(*a, 2)), us(lambda: topk(*a, 2))],
-        "plain_us": us(lambda: topk_plain(*a, 2)),
-        "matrix_kernel_plus_torch_topk_us": us(lambda: torch.topk(matrix(*a), 2, largest=False)),
-    }
-    print(f"hamming_penalty_topk K=2 device time at (1024, 1024) ({card}): {json.dumps(row)}")
 
 
 def main():
@@ -579,22 +672,28 @@ def main():
     ap.add_argument("--earlier-matrix-source", action="append", default=[],
                     help="an earlier hamming_penalty.cu to time in turns with the current one "
                          "(may be given several times)")
+    ap.add_argument("--earlier-topk-source", action="append", default=[],
+                    help="an earlier hamming_topk.cu (the first version's C interface) to hold "
+                         "equal to and time in turns with the current one (may be given several "
+                         "times)")
     args = ap.parse_args()
     cs.check(torch.cuda.is_available(), "needs a GPU")
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     hamming_kernel.load_kernels()
-    frames = parity.stereo_frames(2, cs.H, cs.W, seed=0, step=cs.STEP)
-    cam = make_pinhole(*cs.INTRINSICS, cs.W, cs.H, device=dev)
-    bf = torch.tensor(cs.BF, device=dev)
-    min_z = torch.tensor(cs.BF / cs.INTRINSICS[0], device=dev)
-    hot_path(dev, card, cam, bf, min_z, frames, args.trace)
-    fused_step(dev, card, cam, bf, min_z, frames)
-    tracker_frames(dev, card)
-    mapper_keyframe(dev, card)
-    inertial_frame_and_window(dev, card)
-    triangulation_svd(dev, card)
+    if not (args.earlier_matrix_source or args.earlier_topk_source):
+        frames = parity.stereo_frames(2, cs.H, cs.W, seed=0, step=cs.STEP)
+        cam = make_pinhole(*cs.INTRINSICS, cs.W, cs.H, device=dev)
+        bf = torch.tensor(cs.BF, device=dev)
+        min_z = torch.tensor(cs.BF / cs.INTRINSICS[0], device=dev)
+        hot_path(dev, card, cam, bf, min_z, frames, args.trace)
+        fused_step(dev, card, cam, bf, min_z, frames)
+        tracker_frames(dev, card)
+        mapper_keyframe(dev, card)
+        inertial_frame_and_window(dev, card)
+        triangulation_svd(dev, card)
     kernel_times(dev, card, args.earlier_matrix_source)
+    topk_times(dev, card, args.earlier_topk_source)
 
 
 if __name__ == "__main__":
