@@ -24,7 +24,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
    penalties; with rows tied at 1e9; a tied 700 x 64) beside matrix kernel
    + torch.argmin, and K = 1 past the kernel's 4,096 words as `_assign`
    runs it for a wider vocabulary (1024 x 5000 in two launches merged on
-   the card, rows tied across and inside the chunks); device
+   the card, rows tied across and inside the chunks), and any K past the
+   kernel's 4,096 keys as a settings file with more features gives it
+   (1024 x 5000 at K 64 and K 2, and tied rows: one launch per chunk of
+   4,096 keys, the lists merged on the card, ROADMAP F46); device
    time of each beside
    its plain version,
    what the fused kernel replaces (matrix kernel + stable sort) and
@@ -258,6 +261,27 @@ Phases, each printing a line; any failure raises and exits non-zero:
    f_traj_kitti.txt, the ATE (<= 0.02 m and twice the JAX package's
    paired reading, KITTI_JAX), both kernels' launches by shape, each top-K
    shape one that phase 3 holds.
+28. multi-device (M10), on shards of the one card (one H100 cannot show
+   NCCL between cards, an interconnect's rate or a window larger than one
+   card holds): (a) parallel.distributed_bundle_adjustment on
+   tools/bench_multichip.py's window (100 keyframes, 10,240 points, 8
+   observations a point; parallel.dryrun.make_problem) at 1, 2 and 4
+   shards of cuda:0, 8 iterations, in float32 and float64: ms per
+   iteration and its split (shard compute, reduce, solve, back-substitution,
+   cost, fetch; CUDA events), in float64 the same accepted steps, costs,
+   poses and inliers at every shard count, in float32 (where rounding
+   decides the steps) each final cost within 1% of the float64 run's
+   reduction from its start,
+   and the 1-shard mesh's first 2 iterations against the CPU; (b)
+   tools/torch_bench_multichip.py --processes 2: two processes sharing the
+   card over gloo, one shard each, on the JAX worker's window (40 x 4,096):
+   both exit 0, the final cost that of one process with 2 shards, the
+   all-reduce's share of an iteration; (c) LocalMapper(mesh=make_mesh(2))
+   ._local_ba on tests/test_parallel.py's drifted map: the reprojection
+   error halved, the corrupted observations dropped, the same on the CPU,
+   beside the unsharded card mapper; (d) sharded_extract_batch of 8 frames
+   at 752x480 over 1, 2 and 4 shards: every frame's keypoints those of
+   extract_orb, as sets.
 
 Phase 3 also holds both kernels at phase 27c's KITTI shapes (top-K at
 2000 x 2000 with K 64 and K 2, 4096 x 2000 and 20480 x 2048; the matrix at
@@ -283,7 +307,9 @@ after the load, not its localization-mode run); `launches_relocalization` and
 `launches_loop_closing` are the part of phases 17-18 that relocalization
 and the loop closer made, and `launches_merge` the part of phases 20a and
 20b that `_merge_maps` made (the top-K kernel's K = 2 verification, the
-matrix kernel's fusion at the weld). The matrix kernel is launched by the system paths alone (map-point
+matrix kernel's fusion at the weld); `launches_multi_device` is phase
+28's, counted from 0 at its start: none, since the sharded BA and the
+extraction are plain PyTorch (ROADMAP K16). The matrix kernel is launched by the system paths alone (map-point
 fusion); no tracker path calls it since its top-K was fused.
 Imports nothing of JAX.
 """
@@ -326,6 +352,7 @@ from fasttrack_tpu_torch.datasets.synthetic import (
     LOOP_FX,
     LOOP_H,
     LOOP_W,
+    drifted_leg_scene,
     drifted_loop_scene,
     generate_sequence,
     mean_reprojection_error,
@@ -343,15 +370,22 @@ from fasttrack_tpu_torch.frame_pipeline import (
 from fasttrack_tpu_torch.geometry import se3_identity
 from fasttrack_tpu_torch.kernels import KernelConfig
 from fasttrack_tpu_torch.ops import hamming_kernel
-from fasttrack_tpu_torch.ops.extractor import OrbConfig
+from fasttrack_tpu_torch.ops.extractor import OrbConfig, extract_orb
 from fasttrack_tpu_torch.ops.stereo_match import valid_penalty
 from fasttrack_tpu_torch.ops.topk import top_k
 from fasttrack_tpu_torch.optim import ba_core
 from fasttrack_tpu_torch.optim.inertial import local_inertial_ba
+from fasttrack_tpu_torch.parallel import (
+    distributed_bundle_adjustment,
+    make_mesh,
+    sharded_extract_batch,
+)
+from fasttrack_tpu_torch.parallel import dryrun as mesh_dryrun
 from fasttrack_tpu_torch.settings import Settings
 from fasttrack_tpu_torch.slam_map import Atlas
 from fasttrack_tpu_torch.system import Sensor, System
 from fasttrack_tpu_torch.tracking import Tracker
+from tools.torch_bench_multichip import run_multiprocess
 
 H, W = 480, 752
 CFG = OrbConfig(height=H, width=W, n_features=1024, n_levels=8)
@@ -390,6 +424,10 @@ TOPK_CASES = [(1024, 1024, "random", 64), (2048, 1024, "random", 64), (4096, 102
 # K = 1: the flat vocabulary's quantization (bow/vocabulary.py:_assign), the
 # shipped flat vocabulary's 4096 words at the kernel's MAX_N, zero penalties
 CHUNKED_SHAPE = (1024, 5000)    # K = 1 past MAX_N: a wider flat vocabulary in two launches
+# Past MAX_N keys (ROADMAP F46): one launch per chunk of MAX_N keys, merged on
+# the card; a settings file with more than 4,096 features a camera
+PAST_MAX_N_CASES = [(1024, 5000, "random", 64), (1024, 5000, "random", 2),
+                    (1024, 5000, "tied", 64)]
 N_SYSTEM_FRAMES = 100           # the rendered sequence; phases 10 and 12 (its first 40)
 N_TRACKER_FRAMES = 40           # of them, phase 8 (no mapper)
 N_TRACKER_CPU_FRAMES = 6        # of them, again on the CPU in phase 9
@@ -567,6 +605,27 @@ KITTI_FEATURES, KITTI_LEVELS, KITTI_SCALE, KITTI_FAST, KITTI_TH_DEPTH = 2000, 8,
 # the port's ATE limit is twice its ATE, and at most ATE_LIMIT_M
 KITTI_JAX = {"ate_m": 0.012363490489364401, "frames_ok": 20, "trajectory_lines": 20}
 KITTI_ATE_FACTOR = 2
+# Phase 28 (M10): the landmark-sharded BA on tools/bench_multichip.py's
+# window (100 keyframes, 10,240 points, 8 observations a point) at 1, 2 and 4
+# shards of the card, 8 LM iterations, in float32 (the benches') and float64
+# (the mapper's window, P4); 28b two processes sharing the card over gloo on
+# the JAX worker's window; 28c the mapper with a mesh on
+# tests/test_parallel.py's drifted map; 28d a batch extracted over the shards
+MESH_WINDOW = (100, 10240, 8)   # keyframes, points, observations a point
+MESH_SHARDS = (1, 2, 4)
+MESH_ITERS = 8
+MESH_CPU_ITERS = 2              # 28a: the 1-shard mesh's first iterations, again on the CPU
+# 28a-b: in float32 the steps are decided by rounding on this window (on
+# the CPU the second step is rejected in float32 and accepted in float64; on
+# the card 4 shards accepted 2 steps of 8 and stopped 10% above the float64
+# optimum, 1 shard 4; the JAX package's own table moves with N too,
+# MULTICHIP_r05.json): a float32 run is held to have made 99% of the
+# reduction that float64 makes (initial cost to optimum), and two float32
+# runs of one window to the same within 1% of their reduction
+MESH_F32_COST_TOL = 0.01
+RANKS_WINDOW = {"BMC_K": "40", "BMC_L": "4096", "BMC_ITERS": "6"}   # the JAX worker's window
+RANKS_TIMEOUT_S = 300
+N_MESH_FRAMES = 8               # 28d: frames of phase 10's sequence in one batch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate: a +-1 product is an int8 MAC
 
@@ -884,6 +943,58 @@ def phase_assign_chunked(device, card):
           f"{b * 1e3:.2f} us ({by}) ({card})")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by, "timer": timer,
             "launches_per_call": n_launches}, bad
+
+
+def phase_topk_past_max_n(device, card):
+    """ROADMAP F46: `hamming_penalty_topk` past the kernel's MAX_N keys, as a
+    settings file with more than 4,096 features a camera gives the stereo
+    match: one launch per chunk of at most MAX_N keys at K_c = min(K, chunk
+    width), the chunks' lists merged on the card (`merge_topk_chunks`),
+    held against the plain version with values and indices exact (rows tied
+    across the chunks too). Timed beside the plain version, with the merge
+    alone."""
+    rng = np.random.default_rng(3)
+    kern = hamming_kernel.hamming_penalty_topk
+    plain = hamming_kernel.hamming_penalty_topk_reference
+    rows, mismatches = {}, 0
+    for M, N, kind, K in PAST_MAX_N_CASES:
+        args = kernel_inputs(rng, M, N, device, kind)
+        before, before_k = kern.launches, dict(kern.launches_by_k)
+        values, indices = kern(*args, K)
+        torch.cuda.synchronize()
+        n_chunks = -(-N // hamming_kernel.MAX_N)
+        check(kern.launches == before + n_chunks,
+              f"past MAX_N: {kern.launches - before} launches at {(M, N, K)}")
+        check(kern.launches_by_k[K] - before_k.get(K, 0) == n_chunks,
+              f"past MAX_N: launches by K at {(M, N, K)}")
+        want_v, want_i = plain(*args, K)
+        bad = int((indices != want_i).sum())
+        mismatches += bad
+        check(torch.equal(values, want_v) and bad == 0,
+              f"past MAX_N: the kernel differs from plain at {(M, N, kind, K)}: {bad} indices")
+        past = int((want_i >= hamming_kernel.MAX_N).any(1).sum())
+        line = (f"phase 3 top-k kernel past MAX_N {(M, N)} K={K} {kind}: {n_chunks} launches a "
+                f"call, values and indices equal ({past} rows list a key past MAX_N)")
+        if kind != "tied":
+            check(past > 0, f"past MAX_N: no row lists a key of the second chunk at {(M, N, K)}")
+            q, k, qp, kp = args
+            parts = [(*kern(q, k[c0:c0 + hamming_kernel.MAX_N], qp,
+                            kp[c0:c0 + hamming_kernel.MAX_N],
+                            min(K, N - c0, hamming_kernel.MAX_N)), c0)
+                     for c0 in range(0, N, hamming_kernel.MAX_N)]
+            while True:
+                k_ms, p_ms, timer = in_turns(lambda: plain(*args, K), lambda: kern(*args, K))
+                merge_ms = device_ms(lambda: hamming_kernel.merge_topk_chunks(parts, K))
+                if TIMER["mode"] == timer:
+                    break
+            b, by = bound_ms(M, N, M * K * 12)
+            rows[f"{M}x{N}, K {K}"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b,
+                                      "bound_by": by, "merge_ms": merge_ms, "timer": timer,
+                                      "launches_per_call": n_chunks}
+            line += (f"; device time ({timer}) {k_ms * 1e3:.2f} us (the merge {merge_ms * 1e3:.2f} "
+                     f"us of it), plain {p_ms * 1e3:.2f} us, bound {b * 1e3:.2f} us ({by})")
+        print(f"{line} ({card})")
+    return rows, mismatches
 
 
 def host_frame(f32, desc) -> dict:
@@ -3940,6 +4051,216 @@ def phase_kitti(device, card, root):
     return topk, mat, shapes_topk, shapes_matrix
 
 
+def split_text(split) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+
+
+def same_steps(a, b, rtol=1e-9) -> bool:
+    """Two LM runs' accepted costs are the same steps: equal within `rtol`
+    over their common length, and any further step of the longer run moves
+    its cost by less than `rtol` (at the optimum float64 accepts or rejects
+    steps of 1e-13 by rounding)."""
+    n = min(len(a), len(b))
+    rest = (a if len(a) > n else b)[n - 1:]
+    return (np.allclose(a[:n], b[:n], rtol=rtol, atol=0)
+            and np.allclose(rest, rest[0], rtol=rtol, atol=0))
+
+
+def phase_mesh_ba(device, card):
+    """(a) The landmark-sharded LM (parallel.distributed_bundle_adjustment)
+    on tools/bench_multichip.py's window at 1, 2 and 4 shards of the card,
+    MESH_ITERS iterations, in float32 and float64, each timed with its split
+    (parallel.SectionTimer: CUDA events); then the 1-shard mesh's first
+    MESH_CPU_ITERS iterations again on the CPU. Checks: in float64 the same
+    accepted steps, costs, poses and inliers at every shard count, and the
+    CPU's (`same_steps`); in float32 (rounding decides its steps on this
+    window) every final cost within MESH_F32_COST_TOL of the float64 run's
+    reduction from the optimum."""
+    K, L, obs = MESH_WINDOW
+    arrays, cam_args, bf, n_obs = mesh_dryrun.make_problem(K=K, L=L, obs_per_point=obs)
+    rows, runs = {}, {}
+    for dtype in (np.float32, np.float64):
+        prob = convert.ba_problem_from_numpy(arrays, device, dtype)
+        cam = make_pinhole(*cam_args, device=device)
+        for n in MESH_SHARDS:
+            (poses, _, costs, inlier, _), seconds, split = mesh_dryrun.timed_solve(
+                prob, cam, bf, make_mesh(n, device=device), MESH_ITERS)
+            check(all(np.isfinite(costs)) and costs[-1] < costs[0],
+                  f"phase 28a: {dtype.__name__} at {n} shards, costs {costs}")
+            runs[dtype, n] = (poses.t.cpu().numpy(), costs, inlier.cpu().numpy())
+            ms = 1e3 * seconds / MESH_ITERS
+            rows[f"{dtype.__name__}, {n} shards"] = {
+                "ms_per_iter": ms, "split_ms_per_iter": split, "accepted": len(costs) - 1,
+                "cost_final": costs[-1]}
+            print(f"phase 28a sharded BA on {card}: {dtype.__name__}, {n} shards of {device}, "
+                  f"window {K} keyframes x {L} points ({n_obs} observations), {MESH_ITERS} "
+                  f"iterations: {ms:.2f} ms/iteration on the host's clock; split per iteration "
+                  f"(CUDA events, ms) {split_text(split)}; {len(costs) - 1} steps accepted, cost "
+                  f"{costs[0]:.3f} -> {costs[-1]:.3f}")
+    t64, c64, i64 = runs[np.float64, 1]
+    for n in MESH_SHARDS[1:]:
+        t, c, i = runs[np.float64, n]
+        check(same_steps(c, c64) and np.abs(t - t64).max() <= 1e-6 and np.array_equal(i, i64),
+              f"phase 28a: float64 at {n} shards parts from 1 shard: costs {c} against {c64}, "
+              f"poses {np.abs(t - t64).max():.3g}")
+    f32 = {n: runs[np.float32, n] for n in MESH_SHARDS}
+    for n, (t, c, _) in f32.items():
+        check(abs(c[-1] - c64[-1]) <= MESH_F32_COST_TOL * (c64[0] - c64[-1]),
+              f"phase 28a: float32 at {n} shards ends at {c[-1]:.3f}, the float64 optimum "
+              f"{c64[-1]:.3f} from {c64[0]:.3f}")
+    # the 1-shard mesh's first iterations again on the CPU
+    cpu = torch.device("cpu")
+    cpu_cam = make_pinhole(*cam_args, device=cpu)
+    card_run = distributed_bundle_adjustment(convert.ba_problem_from_numpy(arrays, device, np.float64),
+                                             make_pinhole(*cam_args, device=device), bf,
+                                             make_mesh(1, device=device), iters=MESH_CPU_ITERS)
+    cpu_run = distributed_bundle_adjustment(convert.ba_problem_from_numpy(arrays, cpu, np.float64),
+                                            cpu_cam, bf, make_mesh(1, device=cpu),
+                                            iters=MESH_CPU_ITERS)
+    d_pose = float((card_run[0].t.cpu() - cpu_run[0].t).abs().max())
+    check(same_steps(card_run[2], cpu_run[2]) and d_pose <= 1e-6,
+          f"phase 28a: card against CPU, float64: costs {card_run[2]} / {cpu_run[2]}, poses {d_pose}")
+    c32 = distributed_bundle_adjustment(convert.ba_problem_from_numpy(arrays, cpu), cpu_cam, bf,
+                                        make_mesh(1, device=cpu), iters=0)[2]
+    check(abs(c32[0] - f32[1][1][0]) <= 1e-6 * c32[0],
+          f"phase 28a: card against CPU, float32 starting cost {f32[1][1][0]} / {c32[0]}")
+    print(f"phase 28a card against CPU: the 1-shard mesh's first {MESH_CPU_ITERS} iterations in "
+          f"float64, costs {[round(c, 6) for c in card_run[2]]} on both (rtol 1e-9), poses within "
+          f"{d_pose:.3g}; float32 starting cost equal within 1e-6; float64 at 1, 2, 4 shards: the "
+          f"same steps (accepted {[len(runs[np.float64, n][1]) - 1 for n in MESH_SHARDS]}, those "
+          f"past the first {len(c64) - 1} below the float64 floor), costs within 1e-9, poses "
+          f"within 1e-6, inliers equal; "
+          f"float32 accepted steps {[len(f32[n][1]) - 1 for n in MESH_SHARDS]} at {MESH_SHARDS} "
+          f"shards, final costs {[round(f32[n][1][-1], 3) for n in MESH_SHARDS]} against the "
+          f"float64 optimum {c64[-1]:.3f} (limit {MESH_F32_COST_TOL:.0%} of its reduction), poses "
+          f"{max(np.abs(f32[n][0] - t64).max() for n in MESH_SHARDS):.4f} m from it at most")
+    return rows
+
+
+def phase_mesh_ranks(device, card):
+    """(b) Two processes sharing the card, one shard each, over gloo
+    (tools/torch_bench_multichip.py --processes 2, RANKS_WINDOW): both exit
+    0 within RANKS_TIMEOUT_S; the final cost equals the 1-process 2-shard
+    mesh's on the same window within MESH_F32_COST_TOL of its reduction
+    (float32; the two add the same numbers in the same order, so they
+    should be equal: the line says whether they are); the all-reduce's
+    share of an iteration."""
+    t0 = time.perf_counter()
+    out = run_multiprocess(2, 1, device=str(device), timeout=RANKS_TIMEOUT_S, env=RANKS_WINDOW)
+    wall = time.perf_counter() - t0
+    check(out["processes"] == 2 and out["global_shards"] == 2 and out["backend"] == "gloo",
+          f"phase 28b: {out}")
+    arrays, cam_args, bf, _ = mesh_dryrun.make_problem(
+        K=int(RANKS_WINDOW["BMC_K"]), L=int(RANKS_WINDOW["BMC_L"]), obs_per_point=6)
+    (_, _, costs, _, _), seconds, split = mesh_dryrun.timed_solve(
+        convert.ba_problem_from_numpy(arrays, device), make_pinhole(*cam_args, device=device), bf,
+        make_mesh(2, device=device), int(RANKS_WINDOW["BMC_ITERS"]))
+    check(abs(out["cost_final"] - costs[-1]) <= MESH_F32_COST_TOL * (costs[0] - costs[-1]),
+          f"phase 28b: two processes end at {out['cost_final']}, one process of 2 shards at "
+          f"{costs[-1]}")
+    print(f"phase 28b two processes on {card}, one shard of {device} each, over gloo (the "
+          f"partial systems through the host): window {RANKS_WINDOW}, {out['ms_per_iter']:.2f} "
+          f"ms/iteration, split per iteration (CUDA events, ms) "
+          f"{split_text(out['split_ms_per_iter'])}: the reduce (the all-reduce and the shards' "
+          f"sum) {out['reduce_share']:.1%} of an iteration; one process of 2 shards "
+          f"{1e3 * seconds / int(RANKS_WINDOW['BMC_ITERS']):.2f} ms/iteration, split "
+          f"{split_text(split)}; final cost {out['cost_final']:.4f} against {costs[-1]:.4f} "
+          f"({'equal' if out['costs'] == costs else 'not equal'} step for step); both "
+          f"processes exited 0, {wall:.1f} s with their start")
+    return out
+
+
+def phase_mesh_mapper(device, card):
+    """(c) LocalMapper(mesh=make_mesh(2, device=card))._local_ba on
+    tests/test_parallel.py's drifted map (datasets.synthetic.drifted_leg_scene):
+    the reprojection error below half its start, the corrupted observations
+    dropped; the same on the CPU (float64 windows on both: poses 1e-6,
+    points 1e-5) and against the unsharded card mapper (its own 15-iteration
+    schedule: both below half, the same observations dropped)."""
+    runs = {}
+    for name, dev, mesh in (("mesh", device, make_mesh(2, device=device)),
+                            ("cpu", torch.device("cpu"), make_mesh(2, device="cpu")),
+                            ("unsharded", device, None)):
+        atlas, kfs, bad = drifted_leg_scene(slam_map)
+        m = atlas.current
+        e0 = mean_reprojection_error(m)
+        lm = local_mapping.LocalMapper(
+            atlas, make_pinhole(LOOP_FX, LOOP_FX, LOOP_W / 2, LOOP_H / 2, LOOP_W, LOOP_H,
+                                device=dev), 1.0, mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        lm._local_ba(kfs[-1])
+        ms = (time.perf_counter() - t0) * 1e3
+        e1 = mean_reprojection_error(m)
+        dropped = [int(kfs[-2].mp_ids[fi]) == -1 or m.mappoints.get(mid) is None
+                   or kfs[-2].kid not in m.mappoints[mid].observations for fi, mid in bad]
+        check(e1 < 0.5 * e0 and bad and all(dropped),
+              f"phase 28c ({name}): error {e0:.4f} -> {e1:.4f} px, dropped {dropped}")
+        runs[name] = (e0, e1, ms, {k.kid: k.t_cw.copy() for k in m.keyframes.values()},
+                      {mid: p.position.copy() for mid, p in m.mappoints.items()},
+                      lm.stats.series["lm_device_fetches"])
+    mesh, cpu, plain = runs["mesh"], runs["cpu"], runs["unsharded"]
+    d_pose = max(np.abs(mesh[3][k] - cpu[3][k]).max() for k in mesh[3])
+    d_pts = max(np.abs(mesh[4][k] - cpu[4][k]).max() for k in mesh[4])
+    check(sorted(mesh[4]) == sorted(cpu[4]) == sorted(plain[4]) and d_pose <= 1e-6
+          and d_pts <= 1e-5, f"phase 28c: card against CPU, poses {d_pose}, points {d_pts}")
+    d_plain = max(np.abs(mesh[3][k] - plain[3][k]).max() for k in mesh[3])
+    print(f"phase 28c the mapper with a mesh on {card}: LocalMapper(mesh=make_mesh(2, {device}))"
+          f"._local_ba on the drifted map: reprojection error {mesh[0]:.4f} -> {mesh[1]:.4f} px, "
+          f"the 4 corrupted observations dropped, {mesh[2]:.1f} ms ({mesh[5]} fetches); on the CPU "
+          f"{cpu[1]:.4f} px, poses within {d_pose:.3g} m and points {d_pts:.3g} m of the card's; "
+          f"the unsharded card mapper {plain[1]:.6f} px in {plain[2]:.1f} ms ({plain[5]} fetch), "
+          f"its poses {d_plain:.4f} m from the mesh mapper's")
+    return runs
+
+
+def phase_mesh_extraction(device, card, seq):
+    """(d) parallel.sharded_extract_batch of N_MESH_FRAMES frames of phase
+    10's sequence at 752x480 over 1, 2 and 4 shards of the card: every
+    frame's keypoints (x, y, level, descriptor) equal extract_orb's of that
+    frame, as sets (ROADMAP F4); ms a batch on the host's clock."""
+    imgs = torch.from_numpy(np.stack([f.left for f in seq.frames[:N_MESH_FRAMES]])).to(device)
+
+    def keys(kp, b=None):
+        x, y, lvl, desc, valid = (t.cpu().numpy() if b is None else t[b].cpu().numpy()
+                                  for t in (kp.x, kp.y, kp.level, kp.desc_packed, kp.valid))
+        return {(float(x[i]), float(y[i]), int(lvl[i]), bytes(desc[i])) for i in np.where(valid)[0]}
+
+    want = [keys(extract_orb(imgs[b], CFG)[0]) for b in range(N_MESH_FRAMES)]
+    times = {}
+    for n in MESH_SHARDS:
+        mesh = make_mesh(n, device=device)
+        sharded_extract_batch(imgs, CFG, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kps = sharded_extract_batch(imgs, CFG, mesh)
+        torch.cuda.synchronize()
+        times[n] = (time.perf_counter() - t0) * 1e3
+        check(kps.x.shape == (N_MESH_FRAMES, CFG.total_features),
+              f"phase 28d: {n} shards gave {tuple(kps.x.shape)}")
+        for b in range(N_MESH_FRAMES):
+            check(keys(kps, b) == want[b], f"phase 28d: frame {b} at {n} shards differs from "
+                                            f"extract_orb's keypoints")
+    print(f"phase 28d sharded extraction on {card}: {N_MESH_FRAMES} frames of {W}x{H} "
+          f"({CFG.total_features} features, {CFG.n_levels} levels) over {MESH_SHARDS} shards of "
+          f"{device}: every frame's keypoints equal extract_orb's, as sets; ms a batch "
+          f"{ {n: round(t, 2) for n, t in times.items()} } on the host's clock")
+    return times
+
+
+def phase_multi_device(device, card, seq):
+    """Phase 28 (M10): a-d above, with both kernels' launch counts set to 0
+    before and read after (the sharded BA and the extraction are plain
+    PyTorch, ROADMAP K16: they launch neither)."""
+    kern = reset_launch_counts()
+    matrix = hamming_kernel.hamming_penalty_matrix
+    ba = phase_mesh_ba(device, card)
+    ranks = phase_mesh_ranks(device, card)
+    phase_mesh_mapper(device, card)
+    extraction = phase_mesh_extraction(device, card, seq)
+    return {"ba": ba, "ranks": ranks, "extraction_ms": extraction,
+            "launches": kern.launches, "matrix_launches": matrix.launches}
+
+
 def main():
     t_start = time.perf_counter()
     check(set(sys.argv[1:]) <= {"--ba-float32"}, f"unknown arguments {sys.argv[1:]}")
@@ -4001,7 +4322,7 @@ def phases_mono(device, seq, card):
 
 def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial_seq, loop_seq,
                radtan_seq, kb8_seq, rgbd_scene, kitti_layout, work):
-    """Phases 2-27, then the kernels line and the last lines; `renderer` is
+    """Phases 2-28, then the kernels line and the last lines; `renderer` is
     the renderer's process pool, `side` the one that runs phases 16 and
     24-25, the arguments after it are the futures of the rendered sequences
     and of the KITTI layout, and `work` the temporary directory of the atlas
@@ -4022,6 +4343,7 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
     matrix_rows, matrix_err = phase_matrix_kernel(device, card)
     topk_rows, topk_err, mismatches = phase_topk_kernel(device, card)
     chunked, chunked_bad = phase_assign_chunked(device, card)
+    past_max_n, past_max_n_bad = phase_topk_past_max_n(device, card)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phases 1-3")
 
     # 4. hot path, 5. card against CPU
@@ -4153,6 +4475,13 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
         device, card, kitti_root)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 27")
 
+    # 28. multi-device (a: the sharded BA at 1, 2, 4 shards of the card; b:
+    # two processes over gloo; c: the mapper with a mesh; d: sharded extraction)
+    t0 = time.perf_counter()
+    multi = phase_multi_device(device, card, seq)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 28 (phase 28 "
+          f"{time.perf_counter() - t0:.1f} s)")
+
     search, local_map = matrix_rows[(2048, 1024)], topk_rows[(4096, 1024, TOP_K)]
     top2, epi, fusion = topk_rows[(1024, 1024, 2)], topk_rows[(EPI_ROWS, 1024, TOP_K)], \
         matrix_rows[FUSION_SHAPE]
@@ -4216,6 +4545,8 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
             "launches_atlas_inertial": atlas_i_launches,
             "launches_kitti": kitti_launches,
             "launches_kitti_by_shape": {str(k): v for k, v in sorted(kitti_shapes.items())},
+            # phase 28: the multi-device paths launch neither kernel (K16)
+            "launches_multi_device": multi["launches"],
             "max_abs_err": topk_err,
             "index_mismatches": mismatches,
             "shape": [4096, 1024],
@@ -4242,6 +4573,8 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
                        "replaced_ms", "matrix_plus_torch_argmin_ms")},
                    "chunked": {"shape": list(CHUNKED_SHAPE), "mismatches": chunked_bad,
                                **chunked}},
+            # past MAX_N keys (ROADMAP F46): one launch per chunk, merged on the card
+            "past_max_n": {"mismatches": past_max_n_bad, **past_max_n},
             # at KITTI's widths (phase 27c's shapes, held in phase 3)
             "kitti": {f"{M}x{N}, K {K}": {key: topk_rows[(M, N, K)][key] for key in timed + (
                 "replaced_ms", "matrix_plus_torch_topk_ms")} for M, N, K in KITTI_TOPK_SHAPES},
@@ -4297,6 +4630,7 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
             "launches_atlas_inertial": atlas_i_matrix,
             "launches_kitti": kitti_matrix,
             "launches_kitti_by_shape": {str(k): v for k, v in sorted(kitti_matrix_shapes.items())},
+            "launches_multi_device": multi["matrix_launches"],
             "max_abs_err": matrix_err,
             "shape": [2048, 1024],
             "ms": search["ms"],
@@ -4335,7 +4669,7 @@ def run_phases(device, kind, card, t_start, renderer, side, system_seq, inertial
               rgbd_cpu_matrix) > 0, "a kernel was not launched on the paths of phase 26")
     check(min(atlas_launches, atlas_matrix, atlas_i_launches, atlas_i_matrix, kitti_launches,
               kitti_matrix) > 0, "a kernel was not launched on the paths of phase 27")
-    print(f"chip_smoke: all 27 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 28 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

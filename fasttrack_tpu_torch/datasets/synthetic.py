@@ -500,9 +500,9 @@ def _loop_leg(slam_map, atlas, pts_w, descs, n_kf, kf_x0=0.0, world_T=None, max_
     return kfs
 
 
-def _loop_cloud(seed):
-    """The 300-point cloud and its +-1 descriptors of the loop scenes."""
-    rng = np.random.default_rng(seed)
+def _loop_cloud(rng):
+    """The 300-point cloud and its +-1 descriptors of the loop scenes, the
+    first draws of `rng` (as tests/test_gba_merge.py's build_map draws them)."""
     pts_w = np.stack([rng.uniform(-3, 3, 300), rng.uniform(-2, 2, 300),
                       rng.uniform(5, 9, 300)], -1)
     descs = 2 * rng.integers(0, 2, size=(300, 256)).astype(np.uint8).astype(np.int8) - 1
@@ -524,7 +524,7 @@ def drifted_loop_scene(slam_map, seed=0, inertial=False):
     keyframes (1 s apart, 0.4 along x) carry velocities consistent with
     their stored frames: (0.4, 0, 0) on the outbound leg, that velocity
     rotated by the drift on the return leg."""
-    pts_w, descs = _loop_cloud(seed)
+    pts_w, descs = _loop_cloud(np.random.default_rng(seed))
     atlas = slam_map.Atlas()
     out = _loop_leg(slam_map, atlas, pts_w, descs, 6)
     Rd = _rot_z(0.06)
@@ -554,7 +554,7 @@ def two_map_scene(slam_map):
     cloud and descriptors, with their own points, in a frame offset from
     the old one by a 0.15 rad yaw and (0.7, -0.4, 0.2). The new keyframes'
     true camera centres in the old frame are (0.8 + 0.4 k, 0, 0)."""
-    pts_w, descs = _loop_cloud(0)
+    pts_w, descs = _loop_cloud(np.random.default_rng(0))
     atlas = slam_map.Atlas()
     m_old = atlas.current
     kfs_a = _loop_leg(slam_map, atlas, pts_w, descs, 8)
@@ -570,12 +570,35 @@ def noisy_leg_scene(slam_map):
     cloud whose k-th pose carries a translation error of 0.01 k times a
     standard normal draw (points exact)."""
     rng = np.random.default_rng(0)
-    pts_w, descs = _loop_cloud(1)
+    pts_w, descs = _loop_cloud(np.random.default_rng(1))
     atlas = slam_map.Atlas()
     kfs = _loop_leg(slam_map, atlas, pts_w, descs, 12)
     for k, kf in enumerate(kfs):
         kf.set_pose(kf.R_cw, kf.t_cw + rng.normal(size=3) * 0.01 * k)
     return atlas, kfs, pts_w, descs
+
+
+def drifted_leg_scene(slam_map):
+    """(atlas, keyframes, bad): tests/test_parallel.py's scene for a local
+    BA sharded over a mesh, tests/test_gba_merge.py's build_map(atlas,
+    default_rng(0), n_kf=6, pose_noise=0.008): 6 keyframes 0.4 apart over the
+    300-point cloud, the k-th pose's translation off by 0.008 k times a
+    standard normal draw; then 4 observations of the fifth keyframe (its
+    features 0, 3, 6 and 9) moved by 45 px, the chi2 outliers an adjustment
+    must drop, listed in `bad` as (feature, map point id)."""
+    rng = np.random.default_rng(0)
+    pts_w, descs = _loop_cloud(rng)
+    atlas = slam_map.Atlas()
+    kfs = _loop_leg(slam_map, atlas, pts_w, descs, 6)
+    for k, kf in enumerate(kfs):
+        kf.set_pose(kf.R_cw, kf.t_cw + rng.normal(size=3) * 0.008 * k)
+    bad = []
+    for fi in range(0, 12, 3):
+        mid = int(kfs[-2].mp_ids[fi])
+        if mid >= 0:
+            kfs[-2].kp_uv[fi] = kfs[-2].kp_uv[fi] + np.float32(45.0)
+            bad.append((fi, mid))
+    return atlas, kfs, bad
 
 
 def mean_reprojection_error(m, kf_ids=None) -> float:

@@ -43,8 +43,12 @@ again over the last 64 keyframes and applied when the scale moves by more
 than 0.2% (`_scale_refinement`). After either rescale the points' normals
 and distances and the tracker's saved frames follow the map (F36, F37),
 and its inertial windows reject a step that moves a live observation
-behind its camera (F24). Left out, raising NotImplementedError with its
-ROADMAP item: `mesh` (M10).
+behind its camera (F24).
+
+Given a `mesh` (parallel.make_mesh), the visual local BA is the
+landmark-sharded one (parallel/dist_ba.py, 8 LM iterations, a cost fetch
+each), as the JAX mapper routes it; the window is float64 here as on one
+device (ba_assembly.SOLVE_DTYPE), where the JAX package's is float32.
 """
 
 from __future__ import annotations
@@ -75,8 +79,9 @@ from fasttrack_tpu_torch.imu.init import initialize_imu
 from fasttrack_tpu_torch.nputils import device_fetch, orthonormalize
 from fasttrack_tpu_torch.ops.host_kernels import search_by_projection_exact
 from fasttrack_tpu_torch.ops.project_match import TH_LOW, epipolar_match_tri_batch
-from fasttrack_tpu_torch.optim import local_bundle_adjustment
+from fasttrack_tpu_torch.optim import BAResult, local_bundle_adjustment
 from fasttrack_tpu_torch.optim.inertial import local_inertial_ba
+from fasttrack_tpu_torch.parallel.dist_ba import distributed_bundle_adjustment
 from fasttrack_tpu_torch.slam_map import Atlas, KeyFrame, MapPoint
 from fasttrack_tpu_torch.stats import Stats
 
@@ -84,6 +89,7 @@ from fasttrack_tpu_torch.stats import Stats
 BA_MAX_KFS = 16
 BA_MAX_POINTS = 2048
 INERTIAL_BA_POINTS = 1024       # the temporal window's point cap
+MESH_BA_ITERS = 8               # LM iterations of a local BA sharded over a mesh
 # Floating type of the inertial window's solve: float32, as the JAX package
 # (ROADMAP P5 records what a float64 solve does instead).
 INERTIAL_SOLVE_DTYPE = np.float32
@@ -129,11 +135,8 @@ class LocalMapper:
                  imu_calib=None, tracker=None, monocular: bool = False,
                  mesh=None, stats: Stats | None = None,
                  device=None):      # None: the card (device.resolve); "cpu" for the CPU
-        if mesh is not None:
-            raise NotImplementedError(
-                "bundle adjustment sharded over a device mesh is not ported yet (ROADMAP M10)"
-            )
         self.device = resolve(device)
+        self.mesh = mesh    # parallel.Mesh: the local BA sharded over its devices
         self.atlas = atlas
         self.camera = dataclasses.replace(camera, params=camera.params.to(self.device))
         self._cam_host = host_camera(camera)   # host copy for the projections
@@ -552,12 +555,25 @@ class LocalMapper:
             m, local_ids, fixed_ids,
             self.inv_sigma2, BA_MAX_KFS, BA_MAX_POINTS, mp_ids, device=self.device,
         )
-        res = convert.ba_result_to_numpy(local_bundle_adjustment(
-            prob, self.camera, self._bf_dev, mono_edges_only=self.monocular))
-        write_back(m, meta, res)
-        # steps rejected under the behind-the-camera rule (ROADMAP F24)
-        self.stats.record_count("lm_ba_steps_rejected", res["n_rejected"])
-        self.stats.record_count("lm_device_fetches", 1)
+        if self.mesh is not None:
+            # Landmark-sharded Schur BA over the mesh (parallel/dist_ba.py):
+            # the same math, the reduced camera system summed over the
+            # shards, and the final chi2 classification, so this path culls
+            # as the single-device one does. As in the JAX package it has no
+            # behind-the-camera rule (ROADMAP F24): it charges such
+            # observations in its cost instead.
+            poses, points, _, inlier, chi2 = distributed_bundle_adjustment(
+                prob, self.camera, self._bf_dev, self.mesh, iters=MESH_BA_ITERS)
+            write_back(m, meta, BAResult(poses, points, inlier, chi2), drop_outliers=True)
+            # a cost fetch before the LM loop and one per iteration, then the result's
+            self.stats.record_count("lm_device_fetches", MESH_BA_ITERS + 2)
+        else:
+            res = convert.ba_result_to_numpy(local_bundle_adjustment(
+                prob, self.camera, self._bf_dev, mono_edges_only=self.monocular))
+            write_back(m, meta, res)
+            # steps rejected under the behind-the-camera rule (ROADMAP F24)
+            self.stats.record_count("lm_ba_steps_rejected", res["n_rejected"])
+            self.stats.record_count("lm_device_fetches", 1)
         self.stats.record_count("lm_local_bas", 1)
 
     # ------------------------------------------------------- inertial backend

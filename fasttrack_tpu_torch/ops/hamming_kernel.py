@@ -11,7 +11,8 @@ where a store or a gather is empty), with
   tracker's matchers call: the Pallas kernel's matrix fused with the
   `lax.top_k` every caller applied to it, so that the matrix never reaches
   device memory (csrc/hamming_topk.cu, one launch a call, launched as
-  `topk_launch_plan` says);
+  `topk_launch_plan` says; past MAX_N keys one launch per chunk of the key
+  side, the chunks' lists merged on the card);
 - `hamming_penalty_matrix`: the (M, N) matrix itself, the counterpart of the
   Pallas kernel as a function (csrc/hamming_penalty.cu).
 
@@ -37,7 +38,7 @@ N_BITS = 256
 MATRIX_SOURCE = "hamming_penalty.cu"
 TOPK_SOURCE = "hamming_topk.cu"
 MAX_K = 64        # the selection kernel's list length
-MAX_N = 4096      # the widest key side it takes
+MAX_N = 4096      # the widest key side one launch takes; wider ones go in chunks
 _MAX_ROWS = 32 * 65535  # the matrix kernel's launch grid y extent
 
 # The top-K kernel's launch plan. These mirror csrc/hamming_topk.cu's
@@ -254,34 +255,30 @@ def hamming_penalty_matrix(q_desc, kp_desc, q_pen, kp_pen):
     return out
 
 
-def hamming_penalty_topk(q_desc, kp_desc, q_pen, kp_pen, k):
-    """The K = min(k, N) smallest of Hamming(q, k) + q_pen[:, None] +
-    kp_pen[None, :] in every row: (values (M, K) f32 ascending, indices
-    (M, K) int64), equal values by ascending column. Equals
-    `top_k(-matrix, K)` with the sign folded back, bit for bit.
+def merge_topk_chunks(parts, k):
+    """The K = min(k, N) smallest of the key side from the lists of its
+    chunks: `parts` is [(values (M, K_c), indices (M, K_c), first column)]
+    in column order, each list ascending with equal values by ascending
+    column, as `hamming_penalty_topk` gives it for its chunk. The lists are
+    concatenated in chunk order with each chunk's first column added to its
+    indices, and a stable ascending sort on the values keeps the first K:
+    equal values keep the lowest column, so the result is the list of the
+    whole key side, bit for bit. Runs where the parts lie."""
+    values = torch.cat([v for v, _, _ in parts], dim=1)
+    indices = torch.cat([i + c0 for _, i, c0 in parts], dim=1)
+    values, order = torch.sort(values, dim=1, stable=True)
+    K = min(k, values.shape[1])
+    return values[:, :K], torch.gather(indices, 1, order[:, :K])
 
-    q_desc (M, 256) and kp_desc (N, 256) int8 (any values, as the Pallas
-    kernel and the plain version: a zero row, such as an empty row of the
-    point store or a padded gather, is at distance 128 from everything);
-    q_pen (M,), kp_pen (N,) f32 without NaN; all on one device; 1 <= k. On
-    the card k <= 64 and N <= 4096, and one call is one kernel launch with
-    no scratch memory (`topk_launch_plan`)."""
-    _check_args(q_desc, kp_desc, q_pen, kp_pen)
-    if k < 1:
-        raise ValueError(f"k must be at least 1, got {k}")
-    device = q_desc.device
-    if device.type == "cpu":
-        return hamming_penalty_topk_reference(q_desc, kp_desc, q_pen, kp_pen, k)
-    _check_cuda_layout("hamming_penalty_topk", device, q_desc, kp_desc, q_pen, kp_pen)
+
+def _launch_topk(q_desc, kp_desc, q_pen, kp_pen, K):
+    """One kernel launch at N <= MAX_N, K = min(k, N) <= MAX_K: (values,
+    indices) on the card, counted."""
     M, N = q_desc.shape[0], kp_desc.shape[0]
-    K = min(k, N)
-    if K > MAX_K or N > MAX_N:
-        raise ValueError(f"the kernel takes k <= {MAX_K} and N <= {MAX_N}, got k = {k}, N = {N}")
-    if M > _MAX_ROWS:
-        raise ValueError(f"M = {M} exceeds the kernel's {_MAX_ROWS} rows")
+    device = q_desc.device
     values = torch.empty((M, K), dtype=torch.float32, device=device)
     indices = torch.empty((M, K), dtype=torch.int64, device=device)
-    if M == 0 or N == 0:
+    if M == 0:
         return values, indices
     plan = topk_launch_plan(M, N, K)
     lib = _libraries()[1]
@@ -300,6 +297,46 @@ def hamming_penalty_topk(q_desc, kp_desc, q_pen, kp_pen, k):
     hamming_penalty_topk.launches_by_rows[M] += 1
     hamming_penalty_topk.launches_by_shape[M, N, K] += 1
     return values, indices
+
+
+def hamming_penalty_topk(q_desc, kp_desc, q_pen, kp_pen, k):
+    """The K = min(k, N) smallest of Hamming(q, k) + q_pen[:, None] +
+    kp_pen[None, :] in every row: (values (M, K) f32 ascending, indices
+    (M, K) int64), equal values by ascending column. Equals
+    `top_k(-matrix, K)` with the sign folded back, bit for bit.
+
+    q_desc (M, 256) and kp_desc (N, 256) int8 (any values, as the Pallas
+    kernel and the plain version: a zero row, such as an empty row of the
+    point store or a padded gather, is at distance 128 from everything);
+    q_pen (M,), kp_pen (N,) f32 without NaN; all on one device; 1 <= k. On
+    the card k <= 64, and a key side of at most MAX_N keys is one kernel
+    launch with no scratch memory (`topk_launch_plan`); a wider one is one
+    launch per chunk of MAX_N keys, at K_c = min(K, chunk width), and the
+    chunks' lists are merged on the card (`merge_topk_chunks`)."""
+    _check_args(q_desc, kp_desc, q_pen, kp_pen)
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    device = q_desc.device
+    if device.type == "cpu":
+        return hamming_penalty_topk_reference(q_desc, kp_desc, q_pen, kp_pen, k)
+    _check_cuda_layout("hamming_penalty_topk", device, q_desc, kp_desc, q_pen, kp_pen)
+    M, N = q_desc.shape[0], kp_desc.shape[0]
+    K = min(k, N)
+    if K > MAX_K:
+        raise ValueError(f"the kernel takes k <= {MAX_K}, got k = {k}")
+    if M > _MAX_ROWS:
+        raise ValueError(f"M = {M} exceeds the kernel's {_MAX_ROWS} rows")
+    if N <= MAX_N:
+        if N == 0:
+            return (torch.empty((M, 0), dtype=torch.float32, device=device),
+                    torch.empty((M, 0), dtype=torch.int64, device=device))
+        return _launch_topk(q_desc, kp_desc, q_pen, kp_pen, K)
+    parts = [
+        (*_launch_topk(q_desc, kp_desc[c0:c0 + MAX_N], q_pen, kp_pen[c0:c0 + MAX_N],
+                       min(K, min(N - c0, MAX_N))), c0)
+        for c0 in range(0, N, MAX_N)
+    ]
+    return merge_topk_chunks(parts, K)
 
 
 # Kernel launches since the count was last set to 0 (CPU calls not counted);

@@ -57,9 +57,9 @@ the load (ROADMAP F45). What the file does not hold starts afresh, as in
 the JAX package (ROADMAP F43): the map's full-inertial-BA flags, each
 point's visible and found counters, and the keyframes' feature vectors.
 
-Not ported, raising NotImplementedError with its ROADMAP item when it is
-asked for, never taking another path quietly: the mapper's bundle
-adjustment over a device mesh (M10).
+As the JAX System, it builds its mapper without a mesh; a
+`LocalMapper(mesh=parallel.make_mesh(...))` shards its local bundle
+adjustment over the mesh's devices (M10).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port.
 
 - No module of fasttrack_tpu_torch, neither of the GPU scripts
-  chip_smoke.py and profile_torch.py, and not the port's example script
-  examples/torch_stereo_euroc.py, imports jax or fasttrack_tpu (the JAX
+  chip_smoke.py and profile_torch.py, not the port's example scripts and
+  not its tools (tools/torch_bench_multichip.py,
+  tools/torch_bench_vocab_recall.py) imports jax or fasttrack_tpu (the JAX
   package's __init__ imports jax and sets a global matmul precision).
 - Importing the port turns TF32 off for matmul and cuDNN (geometry stays
   in full f32, the counterpart of the JAX package's precision pin).
@@ -14,7 +15,8 @@
   included). So do `Tracker`, `LocalMapper`, `System` and the bundle
   adjustment's window assembly, whose tensors then follow their device;
   and, with an IMU, `ImuCalib`, `Tracker`, `LocalMapper` and
-  `System(Sensor.IMU_STEREO)`.
+  `System(Sensor.IMU_STEREO)`; and `parallel.make_mesh()` and
+  `LocalMapper(mesh=...)`.
 - `nputils.device_fetch` returns what it was given, in one copy.
 - The System given a distorted pinhole pair to rectify and a size to
   resize to, and given a KB8 pair, does the same; no NotImplementedError
@@ -23,9 +25,10 @@
   Systems with and without an IMU (M9d); no NotImplementedError of the
   port names M9d, and none names M9e or M9f (atlas save and load, the
   drivers and the public API): settings that name an atlas file build a
-  System that loads it.
-- Every name that `fasttrack_tpu`, its `kernels`, `cameras`, `geometry` and
-  `datasets` export has its counterpart, the port's own, under the same
+  System that loads it. The mapper takes a mesh (M10): no
+  NotImplementedError is left in the port.
+- Every name that `fasttrack_tpu`, its `kernels`, `cameras`, `geometry`,
+  `datasets` and `parallel` export has its counterpart, the port's own, under the same
   name in the port (read off the JAX modules).
 - Place recognition: the vocabulary is the port's own copy, loaded from its
   own directory; `LoopCloser`, the default `System` (which builds one) and
@@ -69,6 +72,7 @@ MODULES = sorted(PACKAGE.rglob("*.py")) + [
     ROOT / "examples" / "torch_mono_euroc.py", ROOT / "examples" / "torch_tum_rgbd.py",
     ROOT / "examples" / "torch_kitti_stereo.py", ROOT / "examples" / "torch_run_synthetic.py",
     ROOT / "examples" / "torch_run_experiments.py",
+    ROOT / "tools" / "torch_bench_multichip.py", ROOT / "tools" / "torch_bench_vocab_recall.py",
 ]
 
 
@@ -102,6 +106,8 @@ def test_package_has_the_slice_modules():
         "bow/__init__.py", "bow/vocabulary.py", "bow/database.py", "optim/pnp.py",
         "optim/sim3_solver.py", "optim/sim3_opt.py", "optim/pose_graph.py", "loop_closing.py",
         "cameras/rectify.py", "optim/two_view.py", "viewer.py",
+        "parallel/__init__.py", "parallel/dist_ba.py", "parallel/multihost.py",
+        "parallel/dryrun.py",
     ):
         assert m in names, m
     for source in ("hamming_penalty.cu", "hamming_topk.cu", "fasttrack_native.cpp"):
@@ -116,7 +122,7 @@ def test_module_imports_neither_jax_nor_the_jax_package(path):
 
 
 EXPORTING = ("fasttrack_tpu", "fasttrack_tpu.kernels", "fasttrack_tpu.cameras",
-             "fasttrack_tpu.geometry", "fasttrack_tpu.datasets")
+             "fasttrack_tpu.geometry", "fasttrack_tpu.datasets", "fasttrack_tpu.parallel")
 
 
 @pytest.mark.parametrize("jax_name", EXPORTING)
@@ -309,11 +315,29 @@ def _asks_the_resolver(monkeypatch, modules, build):
 def test_local_mapper_defaults_to_the_card_and_honours_cpu(monkeypatch):
     cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
     lm = local_mapping.LocalMapper(Atlas(), cam, 28.0, 1.2, 4, device="cpu")
-    assert lm.device == torch.device("cpu")
+    assert lm.device == torch.device("cpu") and lm.mesh is None
     assert lm.camera.params.device.type == "cpu" and lm._bf_dev.device.type == "cpu"
     assert lm._cam_host.params.dtype == np.float64
     _asks_the_resolver(monkeypatch, [local_mapping],
                        lambda: local_mapping.LocalMapper(Atlas(), cam, 28.0, 1.2, 4))
+
+
+def test_the_mesh_and_the_mesh_mapper_default_to_the_card_and_honour_cpu(monkeypatch):
+    """`make_mesh()` takes the visible cards and raises without one;
+    `make_mesh(n, device="cpu")` is n shards of the CPU; the mapper keeps
+    the mesh it is given (M10: no raise) and resolves its own device."""
+    from fasttrack_tpu_torch.parallel import dist_ba
+
+    mesh = dist_ba.make_mesh(2, device="cpu")
+    assert mesh.devices == (torch.device("cpu"),) * 2
+    cam = cameras.make_pinhole(256.0, 256.0, 160.0, 120.0, 320, 240, device="cpu")
+    lm = local_mapping.LocalMapper(Atlas(), cam, 28.0, 1.2, 4, mesh=mesh, device="cpu")
+    assert lm.mesh is mesh and lm.device == torch.device("cpu")
+    made = _asks_the_resolver(monkeypatch, [dist_ba], lambda: dist_ba.make_mesh())
+    assert made.devices == (torch.device("cpu"),)
+    monkeypatch.undo()
+    _asks_the_resolver(monkeypatch, [local_mapping], lambda: local_mapping.LocalMapper(
+        Atlas(), cam, 28.0, 1.2, 4, mesh=mesh))
 
 
 def test_system_defaults_to_the_card_and_honours_cpu(monkeypatch):
@@ -509,6 +533,10 @@ def test_no_not_implemented_error_names_resize_rectification_or_kb8(tmp_path):
             if "NotImplementedError" in line or "_NOT_PORTED" in line:
                 assert "M9e" not in line and "M9f" not in line, \
                     f"{path.relative_to(ROOT)}:{n}: {line.strip()}"
+    # multi-device is ported (M10): no NotImplementedError is left at all
+    for path in PACKAGE.rglob("*.py"):
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert "NotImplementedError" not in line, f"{path.relative_to(ROOT)}:{n}: {line.strip()}"
     atlas = _rig_settings("kb8", "cpu")
     atlas.load_atlas = str(tmp_path / "in.osa")
     s.save_atlas(atlas.load_atlas)

@@ -339,6 +339,41 @@ def test_reference_equals_top_k_of_pallas_kernel_on_zero_rows(rng):
     assert not (values == 1e9 + 64).any()
 
 
+@pytest.mark.parametrize("top", [64, 2, 1])
+@pytest.mark.parametrize("N", [5000, 4100])
+def test_chunk_merge_equals_plain_past_max_n(rng, N, top):
+    """ROADMAP F46: past MAX_N keys the card launches once per chunk of at
+    most MAX_N keys, at K_c = min(K, chunk width), and merges the chunks'
+    lists (`merge_topk_chunks`). Fed the plain version's per-chunk lists it
+    equals the plain version over the whole key side, values and indices,
+    with rows drawn from 5 descriptors (ties inside both chunks), 32 queries
+    whose exact keys lie past MAX_N only, 8 of them also in the first chunk
+    (ties across the chunks), zero query rows and zero keys under 1e9
+    penalties; at N = 4,100 the last chunk (4 keys) is narrower than
+    K = 64."""
+    pens = np.asarray([0.0, 0.5, BIG], np.float32)
+    q, k = descriptors(rng, 300, 5), descriptors(rng, N, 5)
+    q[:32] = descriptors(rng, 32)
+    k[MAX_N:MAX_N + 32] = q[:32][:N - MAX_N]
+    k[100:108] = q[:8]
+    q[40:70] = 0
+    k[200:240] = 0
+    args = torch_args(q, k, rng.choice(pens, 300).astype(np.float32),
+                      rng.choice(pens, N).astype(np.float32))
+    qd, kd, qp, kp = args
+    parts = [(*hamming_penalty_topk_reference(qd, kd[c0:c0 + MAX_N], qp, kp[c0:c0 + MAX_N],
+                                              min(top, N - c0, MAX_N)), c0)
+             for c0 in range(0, N, MAX_N)]
+    assert len(parts) == 2 and parts[-1][0].shape[1] == min(top, N - MAX_N)
+    values, indices = hamming_kernel.merge_topk_chunks(parts, top)
+    want_v, want_i = hamming_penalty_topk_reference(*args, top)
+    assert torch.equal(values, want_v) and torch.equal(indices, want_i)
+    assert (want_i >= MAX_N).any() and (want_v == 128).any()
+    # the wrapper on CPU tensors takes any N (the plain version)
+    got_v, got_i = hamming_penalty_topk(*args, top)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -455,3 +490,19 @@ def test_kernel_equals_plain_at_the_new_cases_on_gpu(rng, cuda_device, case):
             assert torch.equal(values, want_v) and torch.equal(indices, want_i), plan
     finally:
         hamming_kernel.topk_launch_plan = default
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1024, 5000, "random", 64), (1024, 5000, "random", 2),
+                                  (1024, 5000, "tied", 64), (300, 4100, "zeros", 64)])
+def test_kernel_takes_a_key_side_past_max_n_on_gpu(rng, cuda_device, case):
+    """F46 on the card: one launch per chunk of MAX_N keys, merged on the
+    card, equal to the plain version."""
+    M, N, kind, K = case
+    args = chip_smoke.kernel_inputs(rng, M, N, cuda_device, kind)
+    before = hamming_penalty_topk.launches
+    values, indices = hamming_penalty_topk(*args, K)
+    torch.cuda.synchronize()
+    assert hamming_penalty_topk.launches == before + 2
+    want_v, want_i = hamming_penalty_topk_reference(*args, K)
+    assert torch.equal(values, want_v) and torch.equal(indices, want_i)
